@@ -6,16 +6,21 @@
 Phases, each fatal on failure (a traceback and a non-zero exit):
 
 1. print the card's name and power limit (nvidia-smi);
-2. build every CUDA kernel from ``cupyimg_tpu_torch/csrc`` with nvcc;
-3. hold each kernel against its plain PyTorch version on the card, over
-   every boundary mode, origins, skipped axes, short axes and 4..64 taps;
-4. the main path: the public ``uniform_filter(256^3 f32, size=5)``,
-   ``gaussian_filter(2048^2 f32, sigma=3)`` and ``sobel(256^3 f32)`` on
-   the card, each checked to launch the kernel exactly once and to agree
-   with scipy.ndimage in float64 on the host;
-5. times from CUDA events (median over 100 launches after a warm-up),
-   printed as one ``{"cases": ...}`` and one ``{"kernels": ...}`` JSON
-   line.
+2. build every CUDA kernel from ``cupyimg_tpu_torch/csrc`` with nvcc, one
+   nvcc per source, all started together;
+3. hold each kernel against its plain PyTorch version on the card:
+   the fused separable correlation over every boundary mode, origins,
+   skipped axes, short axes and 4..64 taps (tolerance from the taps);
+   its min/max op, the rank kernel (exact, NaN included) and the dense
+   kernel (1e-5 * sum|w| * max|x|) over every mode, origins at both ends,
+   short axes and the most extended footprints their gates admit;
+4. the main path: eleven public ``scipy.ndimage`` calls at full size
+   (256^3 and 2048^2/4096^2 float32, a 4096^2 int32 image), each checked
+   to launch its kernel exactly once and to agree with scipy.ndimage on
+   the host (float64 for the correlations, exactly for min/max/rank);
+5. times from CUDA events (median over up to 100 launches after a
+   warm-up), printed as one ``{"cases": ...}`` and one ``{"kernels":
+   ...}`` JSON line, with each kernel's bound and a PyTorch yardstick.
 
 The last line is ``{"ok": true, "device": {...}}``.  Exits non-zero,
 printing no result, when CUDA is not available.
@@ -29,9 +34,13 @@ import time
 import numpy as np
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 flop/s
+# (FMA counted as 2), and fp32 non-FMA instructions/s (a min or a max)
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
+PEAK_MINMAX = 33.5e12
 N_TIMED = 100
+MODES = ("reflect", "mirror", "nearest", "wrap", "constant",
+         "grid-mirror", "grid-wrap", "grid-constant")
 
 
 def check(ok, msg):
@@ -55,26 +64,91 @@ def median_ms(fn, *args, n=N_TIMED):
     return float(np.median(res.gpu_times[0]) * 1e3)
 
 
-def bound(numel, ntaps):
-    """(bound_ms, bound_by): bytes = one read + one write of float32,
-    flops = one multiply-add per tap per axis per voxel."""
+def kernel_ms(launch, kernel, n=20):
+    """Device time of one launch of the CUDA kernel named ``kernel``
+    alone, from torch.profiler over ``n`` calls of ``launch``: the wrapper's
+    host work (planning, argument checks) is left out.  None when the
+    profiler records no such kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    launch()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            launch()
+        torch.cuda.synchronize()
+    total_us, count = 0.0, 0
+    for ev in prof.key_averages():
+        if kernel in ev.key:
+            total_us += getattr(ev, "device_time_total",
+                                getattr(ev, "cuda_time_total", 0.0))
+            count += ev.count
+    if count == 0:
+        return None
+    check(count == n, f"{kernel}: {count} launches profiled, not {n}")
+    return total_us / count / 1e3
+
+
+def bound(numel, flops=0.0, minmax_ops=0.0):
+    """(bound_ms, bound_by): the larger of one read + one write of
+    4-byte values at PEAK_BYTES and the work at its peak rate: ``flops``
+    per voxel at PEAK_FP32, ``minmax_ops`` (min/max instructions) per
+    voxel at PEAK_MINMAX."""
     t_bytes = 8 * numel / PEAK_BYTES
-    t_ops = 2 * sum(ntaps) * numel / PEAK_FP32
+    t_ops = numel * (flops / PEAK_FP32 + minmax_ops / PEAK_MINMAX)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else
                                        "operations")
 
 
-def kernel_vs_plain(fs, torch, g25):
-    """Phase 3: the kernel against its plain version on the card."""
+def same(a, b):
+    """Exact equality of two tensors, NaN positions equal as NaN."""
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        na, nb = a.isnan(), b.isnan()
+        if not torch.equal(na, nb):
+            return False
+        a, b = a.masked_fill(na, 0), b.masked_fill(nb, 0)
+    return torch.equal(a, b)
+
+
+def least_ces(footprint, rank):
+    """The fewest compare-exchanges known per output for this footprint
+    and rank: a rectangle's shared presort (the lane window sorted once,
+    3-D rows merged once, then the pruned merge of the sorted runs), else
+    the rank-pruned Batcher network."""
+    from cupyimg_tpu_torch.ops import sorting_networks as sn
+
+    if not footprint.all():
+        return len(sn.pruned_network(int(footprint.sum()), rank))
+    if footprint.ndim == 2:
+        w0, w1 = footprint.shape
+        return len(sn.batcher_network(w1)) + len(
+            sn.presorted_rank_network(w1, w0, rank)[0])
+    w0, w1, w2 = footprint.shape
+    return (len(sn.batcher_network(w2))
+            + len(sn.merge_runs_full_network(w2, w1)[0])
+            + len(sn.presorted_rank_network(w1 * w2, w0, rank)[0]))
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def separable_vs_plain(fs, torch, g25):
+    """The fused separable correlation against its plain version."""
     rng = np.random.RandomState(3)
     u5 = (0.2,) * 5
     asym4 = (0.3, -0.7, 1.2, 0.4)
     t64 = rng.uniform(-1, 1, 64)
     t64 = tuple(t64 / np.abs(t64).sum())
-    modes = ("reflect", "mirror", "nearest", "wrap", "constant",
-             "grid-mirror", "grid-wrap", "grid-constant")
     cases = [(f"u5-3d-{m}", (37, 45, 70), (u5,) * 3, (0, 0, 0), (m,) * 3,
-              0.5) for m in modes]
+              0.5) for m in MODES]
     cases += [
         ("g25-3d-mixed-origins", (40, 33, 130), (g25,) * 3, (1, -2, 3),
          ("constant", "reflect", "mirror"), 0.5),
@@ -90,7 +164,7 @@ def kernel_vs_plain(fs, torch, g25):
          ("reflect",) * 3, 0.0),
     ]
     cases += [(f"g25-2d-{m}", (300, 517), (g25, g25), (0, 0), (m, m), 0.5)
-              for m in modes]
+              for m in MODES]
     cases += [
         ("u5-2d-origins", (64, 100), (u5, u5), (-2, 2),
          ("reflect", "constant"), 0.0),
@@ -112,11 +186,202 @@ def kernel_vs_plain(fs, torch, g25):
         tol = 2e-6 if normalized else 1e-5 * float(
             np.prod([np.abs(w).sum() for w in ws]))
         err = float((got - ref).abs().max())
-        print(f"kernel-vs-plain {name:24s} {str(shape):17s} "
+        print(f"kernel-vs-plain corr {name:24s} {str(shape):17s} "
               f"max_abs_err {err:.3e} (atol {tol:.1e})")
         check(got.shape == x.shape and bool(torch.isfinite(got).all()),
               f"{name}: bad output")
         check(err <= tol, f"{name}: kernel disagrees with its plain version")
+
+
+def minmax_vs_plain(fs, torch):
+    """The min/max op of the fused separable kernel: exact."""
+    rng = np.random.RandomState(4)
+    # every mode in 3-D and 2-D, min and max in turn
+    cases = [(f"3d-{m}", (37, 45, 70), (3, 4, 5), (0, 1, -2), (m,) * 3, 0.5,
+              i % 2 == 0) for i, m in enumerate(MODES)]
+    cases += [(f"2d-{m}", (300, 517), (7, 2), (-3, 0), (m, m), 0.5,
+               i % 2 == 1) for i, m in enumerate(MODES)]
+    cases += [
+        ("3d-skip-axis-mixed", (21, 50, 67), (6, 1, 9), (2, 0, -4),
+         ("wrap", "nearest", "grid-constant"), -0.5, True),
+        ("3d-64-short-axes", (16, 24, 40), (64, 64, 64), (0, 5, -7),
+         ("constant", "reflect", "mirror"), 0.5, False),
+        ("3d-sizes-2", (9, 10, 11), (2, 2, 2), (-1, 0, -1),
+         ("reflect", "wrap", "constant"), 0.25, True),
+        ("2d-short-axis", (5, 700), (33, 17), (10, -8),
+         ("mirror", "nearest"), 0.0, False),
+        ("3d-n1", (1, 3, 40), (5, 5, 5), (0, 0, 0),
+         ("mirror", "reflect", "wrap"), 0.0, True),
+    ]
+    for name, shape, sizes, origins, cmodes, cval, is_min in cases:
+        x = torch.from_numpy(rng.randn(*shape).astype(np.float32)).cuda()
+        if name == "3d-skip-axis-mixed":
+            x[3, 7, 11] = float("nan")
+            x[20, 49, 0] = float("nan")
+        got = fs.fused_separable_minmax(x, sizes, origins, cmodes, cval,
+                                        is_min)
+        ref = fs.fused_separable_minmax_ref(x, sizes, origins, cmodes, cval,
+                                            is_min)
+        torch.cuda.synchronize()
+        ok = same(got, ref)
+        print(f"kernel-vs-plain {'min' if is_min else 'max'} {name:22s} "
+              f"{str(shape):17s} sizes {str(sizes):13s} equal {ok} "
+              f"nan {int(ref.isnan().sum())}")
+        check(ok, f"minmax {name}: kernel differs from its plain version")
+
+
+def _sparse(shape, nnz, rng):
+    w = np.zeros(int(np.prod(shape)))
+    w[rng.choice(w.size, nnz, replace=False)] = rng.uniform(-1, 1, nnz)
+    return w.reshape(shape)
+
+
+def dense_vs_plain(fd, torch):
+    """The dense kernel: within 1e-5 * sum|w| * max|x|."""
+    rng = np.random.RandomState(5)
+    w7 = rng.randn(7, 7)
+    cases = [(f"2d-7x7-{m}", (300, 517), w7, (0, 0), m, 0.5) for m in MODES]
+    cases += [(f"3d-3x3x3-{m}", (40, 50, 70), rng.randn(3, 3, 3), (1, 0, -1),
+               m, 0.5) for m in ("reflect", "constant", "wrap")]
+    cases += [
+        ("2d-3x3", (300, 517), rng.randn(3, 3), (0, 0), "reflect", 0.0),
+        ("2d-15x15", (300, 517), rng.randn(15, 15), (0, 0), "mirror", 0.0),
+        ("2d-37x37-1369-taps", (300, 517), rng.randn(37, 37), (0, 0),
+         "nearest", 0.0),
+        ("3d-11x11x11", (40, 50, 70), rng.randn(11, 11, 11), (0, 0, 0),
+         "reflect", 0.0),
+        ("2d-sparse-25x40", (300, 517), _sparse((25, 40), 60, rng), (0, 0),
+         "wrap", 0.0),
+        ("3d-sparse-60^3-1400-taps", (40, 45, 70),
+         _sparse((60, 60, 60), 1400, rng), (0, 0, 0), "constant", 0.25),
+        ("2d-origins-lo-0", (300, 517), rng.randn(6, 5), (-3, -2), "reflect",
+         0.0),
+        ("2d-origins-lo-max", (300, 517), rng.randn(6, 5), (2, 2),
+         "grid-wrap", 0.0),
+        ("3d-origins-both-ends", (40, 50, 70), rng.randn(4, 3, 5),
+         (-2, 1, 2), "mirror", 0.0),
+        ("2d-short-axes", (5, 9), rng.randn(9, 17), (0, 0), "reflect", 0.0),
+        ("2d-row-split-1x13000", (8, 7000),
+         _sparse((1, 13000), 3, rng), (0, 0), "wrap", 0.0),
+    ]
+    for name, shape, w, origins, mode, cval in cases:
+        x = torch.from_numpy(rng.rand(*shape).astype(np.float32)).cuda()
+        got = fd.fused_dense_correlate(x, w, origins, mode, cval)
+        ref = fd.fused_dense_correlate_ref(x, w, origins, mode, cval)
+        torch.cuda.synchronize()
+        tol = 1e-5 * float(np.abs(w).sum()) * max(1.0, abs(cval))
+        err = float((got - ref).abs().max())
+        print(f"kernel-vs-plain dense {name:26s} {str(shape):15s} "
+              f"nnz {int(np.count_nonzero(w)):5d} max_abs_err {err:.3e} "
+              f"(atol {tol:.1e})")
+        check(bool(torch.isfinite(got).all()), f"dense {name}: bad output")
+        check(err <= tol, f"dense {name}: kernel disagrees with its plain "
+                          "version")
+
+
+def rank_vs_plain(fr, torch):
+    """The rank kernel: exact, NaN included."""
+    rng = np.random.RandomState(6)
+    cross = np.array([[0, 1, 0], [1, 1, 1], [0, 1, 0]], bool)
+    rand5 = rng.rand(5, 5) < 0.5
+    ext2 = np.zeros((1, 4000), bool)
+    ext2[0, rng.choice(4000, 64, replace=False)] = True
+    ext3 = np.zeros(64000, bool)
+    ext3[rng.choice(64000, 64, replace=False)] = True
+    ext3 = ext3.reshape(40, 40, 40)
+    box3 = np.ones((3, 3), bool)
+    cases = []
+    for dt in (np.float32, np.int32):
+        tag = "f32" if dt == np.float32 else "i32"
+        for r in (1, 4, 7):  # 1, K//2, K-2
+            cases.append((f"3x3-rank{r}-{tag}", (300, 517), dt, box3, (0, 0),
+                          r, "reflect", 0.0))
+        cases += [
+            (f"cross-{tag}", (300, 517), dt, cross, (0, 1), 2, "nearest",
+             0.0),
+            (f"random-5x5-{tag}", (300, 517), dt, rand5, (0, 0),
+             int(rand5.sum()) // 2, "mirror", 0.0),
+            (f"even-4x2-origins-{tag}", (300, 517), dt,
+             np.ones((4, 2), bool), (-2, -1), 3, "wrap", 0.0),
+            (f"64-taps-8x8-{tag}", (120, 150), dt, np.ones((8, 8), bool),
+             (1, -2), 32, "reflect", 0.0),
+            (f"3d-3x3x3-{tag}", (30, 40, 50), dt, np.ones((3, 3, 3), bool),
+             (0, 0, 0), 13, "constant", 3.0),
+        ]
+    cases += [(f"5x5-median-{m}", (200, 317), np.float32,
+               np.ones((5, 5), bool), (0, 0), 12, m, 0.5) for m in MODES]
+    cases += [(f"cross-int32-{m}", (200, 317), np.int32, cross, (0, 0), 2, m,
+               -7.0) for m in MODES]
+    cases += [
+        ("extent-1x4000-64-ones", (64, 3000), np.float32, ext2, (0, 0), 32,
+         "reflect", 0.0),
+        ("extent-40^3-64-ones", (30, 40, 50), np.float32, ext3, (0, 0, 0),
+         31, "wrap", 0.0),
+        ("short-axes-5x5", (3, 4), np.float32, np.ones((5, 5), bool), (0, 0),
+         12, "mirror", 0.0),
+        ("nan-5x5", (200, 317), np.float32, np.ones((5, 5), bool), (0, 0), 12,
+         "reflect", 0.0),
+    ]
+    for name, shape, dt, fp, origins, rank, mode, cval in cases:
+        if dt == np.int32:
+            xh = rng.randint(-1000, 1000, shape).astype(np.int32)
+        else:
+            xh = rng.randn(*shape).astype(np.float32)
+        if name.startswith("nan"):
+            xh[rng.rand(*shape) < 0.02] = np.nan
+        x = torch.from_numpy(xh).cuda()
+        got = fr.fused_rank_filter(x, fp, origins, rank, mode, cval)
+        ref = fr.fused_rank_filter_ref(x, fp, origins, rank, mode, cval)
+        torch.cuda.synchronize()
+        ok = same(got, ref)
+        print(f"kernel-vs-plain rank {name:24s} {str(shape):15s} "
+              f"K {int(fp.sum()):2d} rank {rank:2d} equal {ok}"
+              + (f" nan {int(ref.isnan().sum())}" if name.startswith("nan")
+                 else ""))
+        check(ok, f"rank {name}: kernel differs from its plain version")
+
+
+# ---------------------------------------------------------------------------
+# phase 5: times
+# ---------------------------------------------------------------------------
+
+
+def time_row(label, launch, plain, x, bound_ms_by, library=None,
+             library_call=None, n_plain=20, kernel=None):
+    """One timed case: the kernel's wrapper (``ms``, CUDA events around
+    each call, so host work that starves the card counts), the kernel
+    alone (``kernel_ms``, profiler), its plain version, a copy of the
+    input and, where there is one, the library yardstick (whose result is
+    checked against the plain version's)."""
+    import torch
+
+    y = launch()
+    ref = plain()
+    if y.is_floating_point():
+        err = float((y - ref).abs().nan_to_num().max())
+    else:
+        err = float((y - ref).abs().max())
+    out = torch.empty_like(x)
+    row = {
+        "case": label,
+        "ms": median_ms(launch),
+        "kernel_ms": None if kernel is None else kernel_ms(launch, kernel),
+        "plain_ms": median_ms(plain, n=n_plain),
+        "copy_ms": median_ms(out.copy_, x),
+        "bound_ms": bound_ms_by[0],
+        "bound_by": bound_ms_by[1],
+        "library_ms": None,
+        "library_call": library_call,
+        "max_abs_err": err,
+    }
+    if library is not None:
+        fn, tol = library
+        lib_err = float((fn().reshape(ref.shape).to(ref.dtype) - ref)
+                        .abs().max())
+        check(lib_err <= tol,
+              f"{label}: library yardstick disagrees ({lib_err:.2e})")
+        row["library_ms"] = median_ms(fn, n=20)
+    return row
 
 
 def main():
@@ -131,9 +396,12 @@ def main():
     import cupyimg_tpu_torch.scipy.ndimage as ndi
     from cupyimg_tpu_torch.core import boundary
     from cupyimg_tpu_torch.ops import _build
+    from cupyimg_tpu_torch.ops import fused_dense as fd
+    from cupyimg_tpu_torch.ops import fused_rank as fr
     from cupyimg_tpu_torch.ops import fused_separable as fs
     from cupyimg_tpu_torch.scipy.ndimage.filters import _gaussian_kernel1d
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -151,122 +419,253 @@ def main():
         if log.exists():
             print(log.read_text().strip())
 
-    # -- phase 3: kernel vs plain version -----------------------------------
+    # -- phase 3: kernels vs plain versions ---------------------------------
+    t0 = time.perf_counter()
     g25 = tuple(_gaussian_kernel1d(3.0, 0, 12)[::-1])
-    kernel_vs_plain(fs, torch, g25)
+    separable_vs_plain(fs, torch, g25)
+    minmax_vs_plain(fs, torch)
+    dense_vs_plain(fd, torch)
+    rank_vs_plain(fr, torch)
+    print(f"kernel-vs-plain: {time.perf_counter() - t0:.1f} s")
 
     # -- phase 4: the main path through the public API ----------------------
     rng = np.random.default_rng(0)
     x3 = rng.random((256, 256, 256), dtype=np.float32)
     x2 = rng.random((2048, 2048), dtype=np.float32)
+    img = rng.random((4096, 4096), dtype=np.float32)
+    img_i = rng.integers(-1000, 1001, (4096, 4096)).astype(np.int32)
+    w9 = rng.standard_normal((9, 9))
+    w333 = rng.standard_normal((3, 3, 3))
+    cross = np.array([[0, 1, 0], [1, 1, 1], [0, 1, 0]], bool)
     xc3 = torch.from_numpy(x3).cuda()
     xc2 = torch.from_numpy(x2).cuda()
+    imgc = torch.from_numpy(img).cuda()
+    imgc_i = torch.from_numpy(img_i).cuda()
     torch.cuda.synchronize()
+    counters = {
+        "fused_separable_correlate": fs.fused_separable_correlate,
+        "fused_separable_minmax": fs.fused_separable_minmax,
+        "fused_dense_correlate": fd.fused_dense_correlate,
+        "fused_rank_filter": fr.fused_rank_filter,
+    }
+    f64 = np.float64
+    # (label, kernel, call, scipy reference, atol; 0 = exact)
     main_path = [
-        ("uniform_filter", "uniform_filter(256^3 f32, size=5)",
+        ("uniform_filter(256^3 f32, size=5)", "fused_separable_correlate",
          lambda: ndi.uniform_filter(xc3, size=5),
-         lambda: sndi.uniform_filter(x3.astype(np.float64), size=5), 2e-6),
-        ("gaussian_filter", "gaussian_filter(2048^2 f32, sigma=3)",
+         lambda: sndi.uniform_filter(x3.astype(f64), size=5), 2e-6),
+        ("gaussian_filter(2048^2 f32, sigma=3)", "fused_separable_correlate",
          lambda: ndi.gaussian_filter(xc2, sigma=3),
-         lambda: sndi.gaussian_filter(x2.astype(np.float64), sigma=3), 2e-6),
+         lambda: sndi.gaussian_filter(x2.astype(f64), sigma=3), 2e-6),
         # sum|taps| = 2 * 4 * 4 for the derivative and two smoothing axes
-        ("sobel", "sobel(256^3 f32)", lambda: ndi.sobel(xc3),
-         lambda: sndi.sobel(x3.astype(np.float64)), 1e-5 * 32),
+        ("sobel(256^3 f32)", "fused_separable_correlate",
+         lambda: ndi.sobel(xc3), lambda: sndi.sobel(x3.astype(f64)),
+         1e-5 * 32),
+        ("correlate(4096^2 f32, 9x9, float)", "fused_dense_correlate",
+         lambda: ndi.correlate(imgc, w9, mode="reflect", dtype_mode="float"),
+         lambda: sndi.correlate(img.astype(f64), w9, mode="reflect"),
+         1e-5 * np.abs(w9).sum()),
+        ("convolve(256^3 f32, 3x3x3, float)", "fused_dense_correlate",
+         lambda: ndi.convolve(xc3, w333, dtype_mode="float"),
+         lambda: sndi.convolve(x3.astype(f64), w333),
+         1e-5 * np.abs(w333).sum()),
+        ("minimum_filter(256^3 f32, 5)", "fused_separable_minmax",
+         lambda: ndi.minimum_filter(xc3, 5),
+         lambda: sndi.minimum_filter(x3, 5), 0),
+        ("maximum_filter(4096^2 f32, 9)", "fused_separable_minmax",
+         lambda: ndi.maximum_filter(imgc, 9),
+         lambda: sndi.maximum_filter(img, 9), 0),
+        ("median_filter(4096^2 f32, 5)", "fused_rank_filter",
+         lambda: ndi.median_filter(imgc, 5),
+         lambda: sndi.median_filter(img, 5), 0),
+        ("percentile_filter(4096^2 f32, 30, 5)", "fused_rank_filter",
+         lambda: ndi.percentile_filter(imgc, 30, size=5),
+         lambda: sndi.percentile_filter(img, 30, size=5), 0),
+        ("median_filter(256^3 f32, 3)", "fused_rank_filter",
+         lambda: ndi.median_filter(xc3, 3),
+         lambda: sndi.median_filter(x3, 3), 0),
+        ("rank_filter(4096^2 i32, 2, cross)", "fused_rank_filter",
+         lambda: ndi.rank_filter(imgc_i, 2, footprint=cross),
+         lambda: sndi.rank_filter(img_i, 2, footprint=cross), 0),
     ]
-    fs.fused_separable_correlate.launches = 0
-    outputs = {}
-    per_call = {}
-    for key, label, run, _, _ in main_path:
-        before = fs.fused_separable_correlate.launches
-        outputs[key] = run()
-        per_call[key] = fs.fused_separable_correlate.launches - before
+    for c in counters.values():
+        c.launches = 0
+    outputs = []
+    for label, kernel, run, _, _ in main_path:
+        before = {k: c.launches for k, c in counters.items()}
+        y = run()
+        delta = {k: c.launches - before[k] for k, c in counters.items()}
+        outputs.append((y, delta))
     torch.cuda.synchronize()
-    launches = fs.fused_separable_correlate.launches
-    for key, label, run, reference, tol in main_path:
-        y = outputs[key]
-        check(per_call[key] == 1,
-              f"{label} launched the kernel {per_call[key]} times, not 1")
+    launches = {k: c.launches for k, c in counters.items()}
+    for (label, kernel, _, reference, tol), (y, delta) in zip(main_path,
+                                                              outputs):
+        want = {k: int(k == kernel) for k in counters}
+        check(delta == want,
+              f"{label} launched {delta}, not once its kernel {kernel}")
         exp = reference()
-        check(y.dtype == torch.float32 and tuple(y.shape) == exp.shape,
+        # every call keeps its input's dtype
+        want_dtype = torch.int32 if exp.dtype == np.int32 else torch.float32
+        check(tuple(y.shape) == exp.shape and y.dtype == want_dtype,
               f"{label}: dtype/shape {y.dtype} {tuple(y.shape)}")
         got = y.cpu().numpy()
         check(np.isfinite(got).all(), f"{label}: non-finite output")
-        err = float(np.abs(got - exp).max())
-        print(f"main path {label:38s} launches {per_call[key]} "
-              f"max_abs_err vs scipy f64 {err:.3e} (atol {tol:.1e})")
-        check(err <= tol, f"{label}: disagrees with scipy.ndimage")
+        if tol == 0:
+            err = float(np.abs(got.astype(f64) - exp.astype(f64)).max())
+            check(np.array_equal(got, exp),
+                  f"{label}: differs from scipy.ndimage ({err:.3e})")
+        else:
+            err = float(np.abs(got - exp).max())
+            check(err <= tol, f"{label}: disagrees with scipy.ndimage")
+        print(f"main path {label:38s} {kernel:26s} launches 1 "
+              f"max_abs_err vs scipy {err:.3e} "
+              f"({'exact' if tol == 0 else f'atol {tol:.1e}'})")
+    print(f"main path launches: {json.dumps(launches)}")
     del outputs
+    for kernel in counters:
+        check(launches[kernel] >= 1, f"{kernel} not launched on the main path")
 
     # -- phase 5: times -----------------------------------------------------
+    F = torch.nn.functional
     u5 = (0.2,) * 5
     d3 = (-1.0, 0.0, 1.0)
     s3 = (1.0, 2.0, 1.0)
     sobel_w = (s3, s3, d3)  # sobel(axis=-1): derivative on the last axis
-    timed = [
-        ("uniform_filter 256^3 size=5", xc3, (u5,) * 3,
-         torch.full((1, 1, 5, 5, 5), 1 / 125, device="cuda")),
-        ("gaussian_filter 2048^2 sigma=3", xc2, (g25,) * 2,
-         torch.tensor(np.outer(g25, g25), dtype=torch.float32,
-                      device="cuda")[None, None]),
-        ("sobel 256^3", xc3, sobel_w,
-         torch.tensor(np.einsum("i,j,k->ijk", *sobel_w),
-                      dtype=torch.float32, device="cuda")[None, None]),
-        # the kernel's own floor: every axis skipped, a copy through it
-        ("no taps 256^3", xc3, (None,) * 3, None),
-    ]
-    rows = []
-    for label, x, weights, dense in timed:
+    rows = {}
+
+    def sep_row(label, x, weights, dense):
         nd = x.ndim
         args = (x, weights, (0,) * nd, ("reflect",) * nd, 0.0)
-        y = fs.fused_separable_correlate(*args)
-        ref = fs.fused_separable_correlate_ref(*args)
-        err = float((y - ref).abs().max())
-        out = torch.empty_like(x)
         ntaps = [0 if w is None else len(w) for w in weights]
-        b_ms, b_by = bound(x.numel(), ntaps)
-        row = {
-            "case": label,
-            "ms": median_ms(fs.fused_separable_correlate, *args),
-            "plain_ms": median_ms(fs.fused_separable_correlate_ref, *args,
-                                  n=50),
-            "copy_ms": median_ms(out.copy_, x),
-            "library_ms": None,
-            "bound_ms": b_ms,
-            "bound_by": b_by,
-            "max_abs_err": err,
-        }
+        lib = None
         if dense is not None:
-            # the yardstick: one dense cuDNN convolution (not separable)
-            # over a volume padded beforehand; the pad is not timed
+            # one dense cuDNN convolution (not separable) over a volume
+            # padded beforehand; the pad is not timed
             xp = boundary.pad(x, [(k // 2, k // 2) for k in ntaps],
                               "reflect")[None, None]
-            conv = (torch.nn.functional.conv3d if nd == 3
-                    else torch.nn.functional.conv2d)
-            lib_err = float((conv(xp, dense)[0, 0] - ref).abs().max())
-            check(lib_err <= 1e-4 * float(dense.abs().sum()),
-                  f"{label}: library yardstick disagrees ({lib_err:.2e})")
-            row["library_ms"] = median_ms(conv, xp, dense, n=50)
-        rows.append(row)
-    print(json.dumps({"card": card, "cases": rows}))
-    head = rows[0]
-    print(json.dumps({"kernels": [{
-        "name": "fused_separable_correlate",
-        "route": "cuda",
-        "source": "cupyimg_tpu_torch/csrc/fused_separable.cu",
-        "replaces": "cupyimg_tpu/ops/pallas_stencil.py:1034",
-        "launches": launches,
-        "max_abs_err": head["max_abs_err"],
-        "ms": head["ms"],
-        "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"],
-        "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"],
-        "library_call": "cuDNN conv3d with the dense 5x5x5 box, TF32 off, "
-                        "on an input padded beforehand (pad not timed)",
-        "copy_ms": head["copy_ms"],
-        "shape": "uniform_filter 256^3 f32 size=5",
-        "card": card,
-    }]}))
+            conv = F.conv3d if nd == 3 else F.conv2d
+            lib = (lambda: conv(xp, dense), 1e-4 * float(dense.abs().sum()))
+        rows[label] = time_row(
+            label, lambda: fs.fused_separable_correlate(*args),
+            lambda: fs.fused_separable_correlate_ref(*args), x,
+            bound(x.numel(), flops=2 * sum(ntaps)), lib,
+            None if dense is None else
+            "cuDNN conv with the dense filter, TF32 off, on an input padded "
+            "beforehand (pad not timed)", n_plain=50,
+            kernel="fused_separable_f32_kernel")
+
+    sep_row("uniform_filter 256^3 size=5", xc3, (u5,) * 3,
+            torch.full((1, 1, 5, 5, 5), 1 / 125, device="cuda"))
+    sep_row("gaussian_filter 2048^2 sigma=3", xc2, (g25,) * 2,
+            torch.tensor(np.outer(g25, g25), dtype=torch.float32,
+                         device="cuda")[None, None])
+    sep_row("sobel 256^3", xc3, sobel_w,
+            torch.tensor(np.einsum("i,j,k->ijk", *sobel_w),
+                         dtype=torch.float32, device="cuda")[None, None])
+    # the kernel's own floor: every axis skipped, a copy through it
+    sep_row("no taps 256^3", xc3, (None,) * 3, None)
+
+    def minmax_row(label, x, size, is_min):
+        nd = x.ndim
+        args = (x, (size,) * nd, (0,) * nd, ("reflect",) * nd, 0.0, is_min)
+        h = size // 2
+        xp = boundary.pad(x, [(h, size - 1 - h)] * nd, "reflect")[None, None]
+        pool = F.max_pool3d if nd == 3 else F.max_pool2d
+        # min as -max(-x), the negations timed too
+        lib = ((lambda: -pool(-xp, size, stride=1)) if is_min
+               else (lambda: pool(xp, size, stride=1)))
+        rows[label] = time_row(
+            label, lambda: fs.fused_separable_minmax(*args),
+            lambda: fs.fused_separable_minmax_ref(*args), x,
+            bound(x.numel(), minmax_ops=nd * (size - 1)), (lib, 0.0),
+            f"torch max_pool{nd}d stride 1 on an input padded beforehand "
+            "(pad not timed)" + (", on -x with both negations timed"
+                                 if is_min else ""),
+            kernel="fused_separable_f32_kernel")
+
+    minmax_row("minimum_filter 256^3 size=5", xc3, 5, True)
+    minmax_row("maximum_filter 4096^2 size=9", imgc, 9, False)
+
+    def dense_row(label, x, w, origins):
+        nd = x.ndim
+        args = (x, w, origins, "reflect", 0.0)
+        pads = [(s // 2 + o, s - 1 - s // 2 - o)
+                for s, o in zip(w.shape, origins)]
+        xp = boundary.pad(x, pads, "reflect")[None, None]
+        wt = torch.tensor(w, dtype=torch.float32, device="cuda")[None, None]
+        conv = F.conv3d if nd == 3 else F.conv2d
+        rows[label] = time_row(
+            label, lambda: fd.fused_dense_correlate(*args),
+            lambda: fd.fused_dense_correlate_ref(*args), x,
+            bound(x.numel(), flops=2 * int(np.count_nonzero(w))),
+            (lambda: conv(xp, wt), 1e-5 * float(np.abs(w).sum())),
+            f"cuDNN conv{nd}d, TF32 off, on an input padded beforehand "
+            "(pad not timed)", kernel="fused_dense_f32_kernel")
+
+    dense_row("correlate 4096^2 9x9", imgc, w9, (0, 0))
+    # convolve = correlate with the flipped weights and mirrored origins
+    dense_row("convolve 256^3 3x3x3", xc3, np.flip(w333).copy(), (0, 0, 0))
+
+    def rank_row(label, x, fp, rank):
+        nd = x.ndim
+        args = (x, fp, (0,) * nd, rank, "reflect", 0.0)
+        xp = boundary.pad(x, [(s // 2, s - 1 - s // 2) for s in fp.shape],
+                          "reflect")
+        win = xp
+        for ax, s in enumerate(fp.shape):
+            win = win.unfold(ax, s, 1)
+        win = win.reshape(*x.shape, -1)[..., torch.from_numpy(
+            np.flatnonzero(fp.ravel())).cuda()].contiguous()
+        rows[label] = time_row(
+            label, lambda: fr.fused_rank_filter(*args),
+            lambda: fr.fused_rank_filter_ref(*args), x,
+            bound(x.numel(), minmax_ops=2 * least_ces(fp, rank)),
+            (lambda: torch.kthvalue(win, rank + 1, dim=-1).values, 0.0),
+            "torch.kthvalue over the Tensor.unfold windows, gathered "
+            "beforehand (not timed)", n_plain=10, kernel="fused_rank_kernel")
+        del win
+
+    box5 = np.ones((5, 5), bool)
+    rank_row("median_filter 4096^2 5x5", imgc, box5, 12)
+    rank_row("percentile_filter 4096^2 30 5x5", imgc, box5, 7)
+    rank_row("median_filter 256^3 3x3x3", xc3, np.ones((3, 3, 3), bool), 13)
+    rank_row("rank_filter 4096^2 i32 cross rank 2", imgc_i, cross, 2)
+    torch.cuda.empty_cache()
+
+    print(json.dumps({"card": card, "cases": list(rows.values())}))
+    kernels = [
+        ("fused_separable_correlate", "fused_separable.cu", 1034,
+         "uniform_filter 256^3 size=5"),
+        ("fused_separable_minmax", "fused_separable.cu", 946,
+         "minimum_filter 256^3 size=5"),
+        ("fused_dense_correlate", "fused_dense.cu", 1740,
+         "correlate 4096^2 9x9"),
+        ("fused_rank_filter", "fused_rank.cu", 2070,
+         "median_filter 4096^2 5x5"),
+    ]
+    line = []
+    for kname, src, site, case in kernels:
+        r = rows[case]
+        line.append({
+            "name": kname,
+            "route": "cuda",
+            "source": f"cupyimg_tpu_torch/csrc/{src}",
+            "replaces": f"cupyimg_tpu/ops/pallas_stencil.py:{site}",
+            "launches": launches[kname],
+            "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"],
+            "kernel_ms": r["kernel_ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            "library_call": r["library_call"],
+            "copy_ms": r["copy_ms"],
+            "shape": case,
+            "card": card,
+        })
+    print(f"wall: {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

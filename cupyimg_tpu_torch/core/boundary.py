@@ -112,6 +112,19 @@ def map_indices_np(idx, n: int, mode: str):
     return mapped, oob
 
 
+def fill_value(cval, dtype):
+    """``cval`` as a number of the torch ``dtype``, converted as
+    cupyimg_tpu converts it: an integer dtype truncates toward zero and
+    saturates at its range (NaN gives 0); other dtypes cast."""
+    if dtype.is_floating_point or dtype.is_complex or dtype == torch.bool:
+        return torch.tensor(cval, dtype=dtype).item()
+    cval = float(cval)
+    if np.isnan(cval):
+        return 0
+    info = torch.iinfo(dtype)
+    return int(min(max(np.trunc(cval), info.min), info.max))
+
+
 def pad(x, pad_width, mode: str, cval=0.0):
     """N-d boundary extension of ``x`` by a per-axis index gather.
 
@@ -141,7 +154,8 @@ def pad(x, pad_width, mode: str, cval=0.0):
         if oob.any():
             shape = [1] * y.ndim
             shape[axis] = oob.shape[0]
-            fill = torch.tensor(cval, dtype=y.dtype, device=y.device)
+            fill = torch.tensor(fill_value(cval, y.dtype), dtype=y.dtype,
+                                device=y.device)
             mask = torch.as_tensor(oob, device=y.device).reshape(shape)
             y = torch.where(mask, fill, y)
     return y

@@ -1,15 +1,22 @@
-// Fused separable correlation of a 2-D or 3-D float32 array, for sm_90a.
+// Fused separable correlation, box minimum and box maximum of a 2-D or
+// 3-D float32 array, for sm_90a.
 //
 // Replaces the TPU kernels of cupyimg_tpu/ops/pallas_stencil.py:
 // _fused_separable (all six 'corr' plans: _make_kernel_3d_lanemm padless
 // and padded, _make_kernel_3d_laneroll, _make_kernel_3d,
-// _make_kernel_2d_lanemm, _make_kernel_2d).  What they all compute:
+// _make_kernel_2d_lanemm, _make_kernel_2d; and the 'min'/'max' specs of
+// _make_kernel_3d_laneroll, _make_kernel_3d and _make_kernel_2d, i.e.
+// fused_separable_minmax).  What they all compute, op by op:
 //
-//   y[i] = sum_k w0[k0] w1[k1] w2[k2] * xe[i0+k0-lo0, i1+k1-lo1, i2+k2-lo2]
+//   corr: y[i] = sum_k w0[k0] w1[k1] w2[k2] * xe[i0+k0-lo0, ...]
+//   min:  y[i] = min_k xe[i0+k0-lo0, i1+k1-lo1, i2+k2-lo2]  (max alike)
 //
 // where xe is x extended ONCE, each axis index mapped on its own by that
-// axis's ndimage mode (map_index below), and any out-of-range index on a
-// constant-mode axis giving cval.  A 2-D array runs as (1, n0, n1).
+// axis's ndimage mode (map_index, boundary.cuh), and any out-of-range
+// index on a constant-mode axis giving cval.  A 2-D array runs as
+// (1, n0, n1).  The op is a template parameter: the loads, index maps,
+// ring of K0 planes and planner are shared; only the per-axis fold
+// differs (a weighted sum, or a running NaN-propagating extremum).
 //
 // Bound: each input read once and each output written once, 8 bytes a
 // voxel, against 2 * (K0 + K1 + K2) flops a voxel; for the headline
@@ -43,6 +50,8 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "boundary.cuh"
+
 namespace {
 
 constexpr int kMaxTaps = 64;
@@ -53,13 +62,6 @@ constexpr int kBY = 8;   // threads along axis 1
 constexpr int kT2 = 2 * kBX;
 // input planes in flight per block (ops/fused_separable.py:STAGES)
 constexpr int kStages = 4;
-
-// mode codes, as ops/fused_separable.py:_MODE_CODES assigns them
-constexpr int kReflect = 0;   // reflect, grid-mirror
-constexpr int kMirror = 1;
-constexpr int kNearest = 2;
-constexpr int kWrap = 3;      // wrap, grid-wrap
-// 4: constant, grid-constant
 
 // tap kinds, as ops/fused_separable.py:_tap_kind assigns them
 constexpr int kEqual = 1;      // all taps equal: sum the window, scale once
@@ -80,38 +82,6 @@ struct Params {
   int t1;  // output tile rows along axis 1 (the tile is kT2 wide)
   int z;   // output planes of axis 0 per block
 };
-
-// map an index of an axis of length n onto [0, n) (core/boundary.py).
-// Sets oob for an out-of-range index of a constant-mode axis.
-__device__ __forceinline__ int map_index(int i, int n, int mode, bool& oob) {
-  if ((unsigned)i < (unsigned)n) return i;
-  switch (mode) {
-    case kReflect: {
-      if (n == 1) return 0;
-      const int p = 2 * n;
-      int m = i % p;
-      if (m < 0) m += p;
-      return m < n ? m : p - 1 - m;
-    }
-    case kMirror: {
-      if (n == 1) return 0;
-      const int p = 2 * n - 2;
-      int m = i % p;
-      if (m < 0) m += p;
-      return m < n ? m : p - m;
-    }
-    case kNearest:
-      return i < 0 ? 0 : n - 1;
-    case kWrap: {
-      int m = i % n;
-      if (m < 0) m += n;
-      return m;
-    }
-    default:
-      oob = true;
-      return i < 0 ? 0 : n - 1;
-  }
-}
 
 // NV outputs of a thread of a 1-D correlation with taps w[0..n): get(k, j)
 // is the k-th window sample of output j.  The outputs share each tap
@@ -157,6 +127,34 @@ __device__ __forceinline__ void corr(const float* w, int n, int kind,
   }
 }
 
+// the per-axis op, as ops/fused_separable.py:_OP_CODES assigns them
+constexpr int kCorr = 0;
+constexpr int kMin = 1;
+constexpr int kMax = 2;
+
+// The per-axis fold of op OP over a window of n samples: corr for
+// kCorr; for kMin/kMax a running extremum that keeps NaN (the equal-tap
+// and symmetric shortcuts of corr do not apply to it).
+template <int OP, int NV, class Get>
+__device__ __forceinline__ void fold(const float* w, int n, int kind,
+                                     Get get, float (&s)[NV]) {
+  if constexpr (OP == kCorr) {
+    corr<NV>(w, n, kind, get, s);
+  } else {
+#pragma unroll
+    for (int j = 0; j < NV; ++j) s[j] = get(0, j);
+#pragma unroll 4
+    for (int k = 1; k < n; ++k) {
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        s[j] = OP == kMin ? min_nan(s[j], get(k, j))
+                          : max_nan(s[j], get(k, j));
+      }
+    }
+  }
+}
+
+template <int OP>
 __global__ void __launch_bounds__(kBX * kBY)
 fused_separable_f32_kernel(const float* __restrict__ x,
                            float* __restrict__ y,
@@ -252,7 +250,7 @@ fused_separable_f32_kernel(const float* __restrict__ x,
       const int dr = two ? kBY : 0;
       const float* src = tile + r * H2 + tx;
       float v[4];
-      corr<4>(w2, K2, kind2, [&](int k, int j) {
+      fold<OP, 4>(w2, K2, kind2, [&](int k, int j) {
         return src[(j >> 1) * dr * H2 + (j & 1) * kBX + k];
       }, v);
       float* dst = s_mid + r * kT2 + tx;
@@ -275,7 +273,7 @@ fused_separable_f32_kernel(const float* __restrict__ x,
       const int dr = two ? kBY : 0;
       const float* src = s_mid + r * kT2 + tx;
       float v[4];
-      corr<4>(w1, K1, kind1, [&](int k, int j) {
+      fold<OP, 4>(w1, K1, kind1, [&](int k, int j) {
         return src[((j >> 1) * dr + k) * kT2 + (j & 1) * kBX];
       }, v);
       float* cell = ring + r * kT2 + tx;
@@ -287,7 +285,7 @@ fused_separable_f32_kernel(const float* __restrict__ x,
       }
       if (zo >= z0) {
         float out[4];
-        corr<4>(w0, K0, kind0, [&](int k, int j) {
+        fold<OP, 4>(w0, K0, kind0, [&](int k, int j) {
           int s = first + k;
           if (s >= K0) s -= K0;
           return cell[s * TT + (j >> 1) * dr * kT2 + (j & 1) * kBX];
@@ -307,14 +305,29 @@ fused_separable_f32_kernel(const float* __restrict__ x,
   }
 }
 
+template <int OP>
+int launch(const float* x, float* y, const Params& p, const int* plan,
+           void* stream) {
+  const dim3 grid(plan[2], plan[3]);
+  const int smem = plan[4];
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_separable_f32_kernel<OP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  fused_separable_f32_kernel<OP><<<grid, dim3(kBX, kBY), smem,
+                                   (cudaStream_t)stream>>>(x, y, p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// dims: n0, n1, n2.  taps: 3 x 64 floats.  axis_info: 3 x (ntaps, lo,
-// mode, kind).  plan: t1, z, grid_x, grid_y, shared bytes.
+// dims: n0, n1, n2.  taps: 3 x 64 floats (unused by min/max).
+// axis_info: 3 x (ntaps, lo, mode, kind).  plan: t1, z, grid_x, grid_y,
+// shared bytes.  op: 0 correlate, 1 minimum, 2 maximum.
 // Returns the cudaError_t of the attribute call or of the launch.
 extern "C" int fused_separable_f32(const float* x, float* y, const int* dims,
                                    const float* taps, const int* axis_info,
-                                   float cval, const int* plan,
+                                   float cval, const int* plan, int op,
                                    void* stream) {
   Params p;
   for (int a = 0; a < 3; ++a) {
@@ -329,14 +342,10 @@ extern "C" int fused_separable_f32(const float* x, float* y, const int* dims,
   p.cval = cval;
   p.t1 = plan[0];
   p.z = plan[1];
-  const dim3 grid(plan[2], plan[3]);
-  const int smem = plan[4];
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_separable_f32_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  fused_separable_f32_kernel<<<grid, dim3(kBX, kBY), smem,
-                               (cudaStream_t)stream>>>(x, y, p);
-  return (int)cudaGetLastError();
+  switch (op) {
+    case kCorr: return launch<kCorr>(x, y, p, plan, stream);
+    case kMin: return launch<kMin>(x, y, p, plan, stream);
+    case kMax: return launch<kMax>(x, y, p, plan, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
-

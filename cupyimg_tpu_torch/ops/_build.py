@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface (no PyTorch headers),
 so nvcc builds it in seconds.  The shared library goes to
-``build/kernels/<name>-<hash of the source>.so`` at the root of the
-checkout, at first use; a changed source gets a new file.  nvcc's
+``build/kernels/<name>-<hash>.so`` at the root of the checkout, at first
+use, where the hash covers the source and every shared header
+(``csrc/*.cuh``): a changed source or header gets a new file.  nvcc's
 ``-Xptxas -v`` report (registers, shared memory, spills) is kept beside
 it as ``.log``.
 """
@@ -25,7 +26,7 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
-SOURCES = ("fused_separable",)
+SOURCES = ("fused_separable", "fused_dense", "fused_rank")
 
 
 def _nvcc():
@@ -38,6 +39,8 @@ def _nvcc():
 
 def library_path(name: str) -> Path:
     digest = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

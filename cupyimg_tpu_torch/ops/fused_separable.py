@@ -1,15 +1,17 @@
-"""Fused separable correlation: the CUDA kernel, its planner and its
-plain PyTorch version.
+"""Fused separable correlation and box min/max: the CUDA kernel, its
+planner and its plain PyTorch versions.
 
 The counterpart of the separable half of ``cupyimg_tpu/ops/pallas_stencil.py``
-(``fused_separable_correlate`` -> ``_fused_separable``).  Per-axis 1-D
-correlations of a 2-D/3-D float32 array run in ONE pass over device memory
-(``csrc/fused_separable.cu``): the input is boundary-extended once, inside
-the kernel's loads, each axis with its own mode, and a constant mode on
-any axis gives the shared ``cval``.
+(``fused_separable_correlate`` and ``fused_separable_minmax`` ->
+``_fused_separable``).  Per-axis 1-D correlations, or per-axis running
+minima/maxima, of a 2-D/3-D float32 array run in ONE pass over device
+memory (``csrc/fused_separable.cu``, one kernel templated on the op): the
+input is boundary-extended once, inside the kernel's loads, each axis with
+its own mode, and a constant mode on any axis gives the shared ``cval``.
 
-For a CUDA tensor :func:`fused_separable_correlate` launches the kernel or
-raises; only a CPU tensor takes :func:`fused_separable_correlate_ref`.
+For a CUDA tensor :func:`fused_separable_correlate` and
+:func:`fused_separable_minmax` launch the kernel or raise; only a CPU
+tensor takes the plain versions (``*_ref``).
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ from cupyimg_tpu_torch.core import boundary
 __all__ = [
     "fused_separable_correlate",
     "fused_separable_correlate_ref",
+    "fused_separable_minmax",
+    "fused_separable_minmax_ref",
     "plan",
     "supports",
 ]
@@ -47,6 +51,8 @@ _MODE_CODES = {
     "wrap": 3, "grid-wrap": 3,
     "constant": 4, "grid-constant": 4,
 }
+# the kernel's per-axis op (kCorr, kMin, kMax)
+_OP_CODES = {"corr": 0, "min": 1, "max": 2}
 
 
 def supports(x, weights):
@@ -156,7 +162,11 @@ def _tap_kind(taps):
     return 0
 
 
-def _launch(x, weights, origins, modes, cval):
+def _launch(x, weights, origins, modes, cval, op="corr"):
+    """One launch of the kernel.  ``weights[ax]`` is the taps of axis
+    ``ax`` for ``op="corr"``, or a window of ``len(weights[ax])`` samples
+    for ``"min"``/``"max"`` (whose values are not read); None skips the
+    axis."""
     if not x.is_cuda or x.dtype != torch.float32 or x.ndim not in (2, 3):
         raise ValueError(
             "fused_separable kernel takes a 2-D or 3-D float32 CUDA tensor, "
@@ -184,7 +194,8 @@ def _launch(x, weights, origins, modes, cval):
         lo, _ = _window(len(w), int(origin))
         a = ax + pad3
         taps[a, : len(w)] = w
-        info[a] = (len(w), lo, _MODE_CODES[mode], _tap_kind(w))
+        kind = _tap_kind(w) if op == "corr" else 0
+        info[a] = (len(w), lo, _MODE_CODES[mode], kind)
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
@@ -198,11 +209,11 @@ def _launch(x, weights, origins, modes, cval):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.fused_separable_f32(
             x.data_ptr(), y.data_ptr(), dims.ctypes.data, taps.ctypes.data,
-            info.ctypes.data, float(cval), geom.ctypes.data, stream,
+            info.ctypes.data, float(cval), geom.ctypes.data, _OP_CODES[op],
+            stream,
         )
     if err != 0:
         raise RuntimeError(f"fused_separable kernel launch failed: CUDA error {err}")
-    fused_separable_correlate.launches += 1
     return y
 
 
@@ -212,7 +223,7 @@ def _library():
     lib = _build.load("fused_separable")
     fn = lib.fused_separable_f32
     fn.argtypes = [ctypes.c_void_p] * 5 + [
-        ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p
+        ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p
     ]
     fn.restype = ctypes.c_int
     return lib
@@ -236,7 +247,9 @@ def fused_separable_correlate(x, weights, origins, modes, cval=0.0):
     """
     if x.device.type == "cpu":
         return fused_separable_correlate_ref(x, weights, origins, modes, cval)
-    return _launch(x, weights, origins, modes, cval)
+    y = _launch(x, weights, origins, modes, cval)
+    fused_separable_correlate.launches += 1
+    return y
 
 
 fused_separable_correlate.launches = 0
@@ -260,5 +273,66 @@ def fused_separable_correlate_ref(x, weights, origins, modes, cval=0.0):
         for k, wk in enumerate(w):
             term = float(wk) * y.narrow(ax, k, n)
             acc = term if acc is None else acc + term
+        y = acc
+    return x.clone() if y is x else y
+
+
+def _minmax_windows(sizes):
+    """Per-axis windows for :func:`_launch`: None for a size of 1 or
+    None (axis skipped), else ``size`` placeholder taps."""
+    return [None if sz is None or int(sz) <= 1 else (1.0,) * int(sz)
+            for sz in sizes]
+
+
+def fused_separable_minmax(x, sizes, origins, modes, cval=0.0, is_min=True):
+    """Box minimum (``is_min``) or maximum in one fused pass.
+
+    Parameters
+    ----------
+    x : (S0, S1[, S2]) float32 tensor
+    sizes : sequence of int, window size per axis (1 or None = skip), at
+        most 64
+    origins : sequence of int, per axis (window ``lo = size//2 + origin``)
+    modes : sequence of str, ndimage boundary mode per axis
+    cval : float, shared by every constant-mode axis
+
+    The raw input is extended once; for a minimum or maximum that equals
+    extending each pass's output again, under every mode and cval.  A
+    CUDA tensor launches ``csrc/fused_separable.cu`` with the min or max
+    op (and counts one in ``fused_separable_minmax.launches``); a CPU
+    tensor runs :func:`fused_separable_minmax_ref`.  NaN propagates, as
+    in ``torch.minimum``.
+    """
+    if x.device.type == "cpu":
+        return fused_separable_minmax_ref(x, sizes, origins, modes, cval,
+                                          is_min)
+    y = _launch(x, _minmax_windows(sizes), origins, modes, cval,
+                "min" if is_min else "max")
+    fused_separable_minmax.launches += 1
+    return y
+
+
+fused_separable_minmax.launches = 0
+
+
+def fused_separable_minmax_ref(x, sizes, origins, modes, cval=0.0,
+                               is_min=True):
+    """Plain PyTorch version of the min/max kernel: one combined per-axis
+    extension by index gather, then a running ``torch.minimum`` or
+    ``torch.maximum`` over ``narrow`` slices of each axis."""
+    windows = _minmax_windows(sizes)
+    pads = [
+        (0, 0) if w is None else _window(len(w), int(o))
+        for w, o in zip(windows, origins)
+    ]
+    y = boundary.pad(x, pads, list(modes), cval)
+    op = torch.minimum if is_min else torch.maximum
+    for ax in reversed(range(x.ndim)):
+        if windows[ax] is None:
+            continue
+        n = x.shape[ax]
+        acc = y.narrow(ax, 0, n)
+        for k in range(1, len(windows[ax])):
+            acc = op(acc, y.narrow(ax, k, n))
         y = acc
     return x.clone() if y is x else y

@@ -1,11 +1,13 @@
-"""Per-axis stencil engine on torch tensors.
+"""Stencil engines on torch tensors.
 
 A stencil is *boundary-extend + weighted shifted-slice accumulation*.
 Weights are concrete numpy arrays, so zero taps are skipped while the
 accumulation is built.  This is the path every tensor that the fused
-separable kernel does not take runs on (CPU tensors, integer and float64
-data, complex data); each pass costs one read and one write of the
-volume.
+kernels do not take runs on (CPU tensors, integer and float64 data,
+complex data); each pass costs one read and one write of the volume.
+:func:`correlate_nd` sends a float32 CUDA correlation to the dense kernel
+(``ops/fused_dense.py``); :func:`reduce_window` and
+:func:`gather_windows` serve the min/max and rank filters.
 
 All engines take *normalized* arguments (per-axis origins, validated
 mode); argument munging lives in the scipy.ndimage API layer.
@@ -14,6 +16,7 @@ mode); argument munging lives in the scipy.ndimage API layer.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from cupyimg_tpu_torch.core import boundary, dtypes
 
@@ -106,3 +109,59 @@ def correlate1d_axis(x, weights1d, axis: int, mode, cval, origin, acc_dtype):
     return correlate_shift_add(
         x, weights1d.reshape(shape), mode, cval, origins, acc_dtype
     )
+
+
+def correlate_nd(x, weights, mode, cval, origins, acc_dtype):
+    """Dense nd correlation: the dense kernel for a CUDA tensor whose
+    accumulation dtype is float32 and whose weights its gate admits
+    (``fused_dense.supports_dense``), else :func:`correlate_shift_add`.
+
+    ``acc_dtype`` is float32 only under ``dtype_mode="float"``: under the
+    default ``"ndimage"`` even float32 data accumulates in float64.
+    """
+    from cupyimg_tpu_torch.ops import fused_dense
+
+    weights = np.asarray(weights)
+    if np.dtype(acc_dtype) == np.float32:
+        xw = x.to(torch.float32)
+        if fused_dense.supports_dense(xw, weights):
+            return fused_dense.fused_dense_correlate(
+                xw.contiguous(), weights, origins, mode, cval
+            )
+    return correlate_shift_add(x, weights, mode, cval, origins, acc_dtype)
+
+
+def reduce_window(x, offsets, mode, cval, reducer, init=None):
+    """Running reduction over footprint taps without materializing windows.
+
+    ``offsets`` is ``(taps, pad_width)`` from :func:`footprint_offsets`;
+    ``reducer`` combines the accumulator with each shifted slice (e.g.
+    ``torch.minimum``).  Drives the min/max filters that the fused
+    separable kernel does not take.
+    """
+    taps, pad_width = offsets
+    xp = boundary.pad(x, pad_width, mode, cval)
+    out = init
+    for off in taps:
+        piece = xp[tuple(slice(o, o + n) for o, n in zip(off, x.shape))]
+        out = piece if out is None else reducer(out, piece)
+    return out
+
+
+def footprint_offsets(footprint, origins):
+    """Static (offsets, pad_width) for a boolean footprint (numpy array)."""
+    footprint = np.asarray(footprint)
+    pad_width = footprint_pad_width(footprint.shape, origins)
+    taps = [tuple(int(i) for i in idx) for idx in np.argwhere(footprint)]
+    return taps, pad_width
+
+
+def gather_windows(x, footprint, origins, mode, cval):
+    """Footprint windows stacked as a (K, *x.shape) tensor: K times the
+    volume in memory, for the rank filters of more than 64 taps."""
+    taps, pad_width = footprint_offsets(footprint, origins)
+    xp = boundary.pad(x, pad_width, mode, cval)
+    return torch.stack([
+        xp[tuple(slice(o, o + n) for o, n in zip(off, x.shape))]
+        for off in taps
+    ])

@@ -1,33 +1,54 @@
-"""scipy.ndimage filters on torch tensors: the separable family.
+"""scipy.ndimage filters on torch tensors.
 
-API parity with scipy.ndimage for correlate1d/convolve1d, the uniform and
-gaussian filters, and the derivative filters (prewitt/sobel/laplace
-family), with the 8 ndimage boundary modes, the ``dtype_mode`` precision
-policy, and complex-dtype support.
+API parity with scipy.ndimage for correlate/convolve (and their 1-d
+forms), the uniform and gaussian filters, the derivative filters
+(prewitt/sobel/laplace family), the min/max filters, the
+rank/median/percentile filters and the generic filters, with the 8
+ndimage boundary modes, the ``dtype_mode`` precision policy, and
+complex-dtype support.
 
-Routing: a CUDA float32 2-D/3-D call of the separable filters runs as ONE
-launch of the fused kernel (``ops/fused_separable.py``), whatever
-``dtype_mode`` says.  Every other call (CPU tensors, integer, float64 or
-complex data, 1-D or 4-D+) takes the per-axis torch path
-(``ops/stencil.py``).
+Routing of a CUDA call (every other call, CPU tensors included, takes
+plain torch: ``ops/stencil.py``, ``ops/sorting_networks.py``):
+
+- the separable filters, float32 2-D/3-D: ONE launch of the fused
+  separable kernel (``ops/fused_separable.py``), whatever ``dtype_mode``
+  says;
+- ``correlate``/``convolve`` accumulating in float32
+  (``dtype_mode="float"``) with weights the dense kernel admits: ONE
+  launch of the dense kernel (``ops/fused_dense.py``);
+- min/max filters over a full rectangle of sizes <= 64, float32
+  2-D/3-D: ONE launch of the fused separable kernel's min/max op;
+- rank/median/percentile filters of 3..64 taps whose output dtype is the
+  input's, int32/float32 2-D/3-D: ONE launch of the rank kernel
+  (``ops/fused_rank.py``); rank 0 and rank K-1 go to the min/max path.
 
 Differences from scipy:
 
 - ``output`` may be a dtype (or None) but not a preallocated array.
 - A numpy or list ``input`` goes to ``config.device``; a tensor keeps its
   device.
+- ``generic_filter``/``generic_filter1d`` take a function of torch
+  tensors that ``torch.func.vmap`` can map over the windows (lines).
+- ``dtype_mode="numpy"`` is not ported yet.
 """
 
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 import torch
 
 from cupyimg_tpu_torch.core import boundary, dtypes, util
 from cupyimg_tpu_torch.core.config import config
-from cupyimg_tpu_torch.ops import fused_separable, stencil
+from cupyimg_tpu_torch.ops import fused_rank, fused_separable, stencil
+from cupyimg_tpu_torch.ops.sorting_networks import rank_select
 
 __all__ = [
+    "generic_filter",
+    "generic_filter1d",
+    "correlate",
+    "convolve",
     "correlate1d",
     "convolve1d",
     "uniform_filter",
@@ -41,6 +62,13 @@ __all__ = [
     "gaussian_laplace",
     "generic_gradient_magnitude",
     "gaussian_gradient_magnitude",
+    "minimum_filter",
+    "maximum_filter",
+    "minimum_filter1d",
+    "maximum_filter1d",
+    "rank_filter",
+    "median_filter",
+    "percentile_filter",
 ]
 
 
@@ -76,6 +104,112 @@ def _cast_output(acc, out_dtype):
         wrapped = torch.where(wrapped >= two63, wrapped - two64, wrapped)
         acc = torch.where(big, wrapped, acc).to(torch.int64)
     return acc.to(dtypes.to_torch(out_dtype))
+
+
+def _check_nd_weights(input, weights, origin):
+    """Validate the weights' rank and normalize per-axis origins."""
+    if weights.ndim != input.ndim:
+        raise RuntimeError("filter weights array has incorrect shape")
+    origins = util.fix_sequence_arg(origin, input.ndim, "origin", int)
+    for o, w in zip(origins, weights.shape):
+        util.check_origin(o, w)
+    return origins
+
+
+def _correlate_or_convolve(
+    input, weights, output, mode, cval, origin, convolution, dtype_mode
+):
+    """Shared body of :func:`correlate` and :func:`convolve`."""
+    dtype_mode = _default_dtype_mode(dtype_mode)
+    if dtype_mode == "numpy":
+        raise NotImplementedError(
+            "dtype_mode='numpy' is not ported to cupyimg_tpu_torch yet"
+        )
+    input = util.as_tensor(input)
+    weights = _as_weights(weights)
+    boundary.check_mode(mode)
+    origins = _check_nd_weights(input, weights, origin)
+    if weights.size == 0:
+        return torch.zeros_like(input)
+    util.check_cval(
+        mode, cval, dtypes.is_integer_dtype(output or input.dtype)
+    )
+    if convolution:
+        # convolve(x, w) == correlate(x, flip(w)) with mirrored origins
+        # (even sizes shift by one), the scipy convention
+        weights = np.flip(weights)
+        origins = [
+            -o - 1 if wsize % 2 == 0 else -o
+            for o, wsize in zip(origins, weights.shape)
+        ]
+    elif weights.dtype.kind == "c":
+        weights = weights.conj()  # numpy.correlate conjugates the weights
+    acc_dtype = dtypes.promote_weights_dtype(
+        input.dtype, weights.dtype, dtype_mode
+    )
+    out_dtype = dtypes.resolve_output_dtype(output, input.dtype, acc_dtype)
+    if input.numel() == 0:  # scipy shape-preserves empty inputs
+        return input.new_zeros(input.shape, dtype=dtypes.to_torch(out_dtype))
+    acc = stencil.correlate_nd(input, weights, mode, cval, origins, acc_dtype)
+    return _cast_output(acc, out_dtype)
+
+
+def correlate(
+    input,
+    weights,
+    output=None,
+    mode="reflect",
+    cval=0.0,
+    origin=0,
+    *,
+    use_weights_mask=False,
+    axes=None,
+    dtype_mode=None,
+):
+    """Multi-dimensional correlation (scipy.ndimage.correlate parity).
+
+    ``use_weights_mask`` is accepted for API parity and does nothing:
+    zero weights are always skipped.  ``axes`` restricts the correlation
+    to those axes: ``weights`` then spans ``len(axes)`` dimensions.
+    """
+    del use_weights_mask
+    input = util.as_tensor(input)
+    ax = util.check_axes(axes, input.ndim)
+    if len(ax) != input.ndim:
+        weights = _axes_embed_array(
+            _as_weights(weights), ax, input.ndim, "filter weights")
+        origin = util.expand_axes_arg(origin, ax, input.ndim, "origin", 0,
+                                      int)
+    return _correlate_or_convolve(
+        input, weights, output, mode, cval, origin, False, dtype_mode
+    )
+
+
+def convolve(
+    input,
+    weights,
+    output=None,
+    mode="reflect",
+    cval=0.0,
+    origin=0,
+    *,
+    use_weights_mask=False,
+    axes=None,
+    dtype_mode=None,
+):
+    """Multi-dimensional convolution (scipy.ndimage.convolve parity;
+    ``axes`` as in :func:`correlate`)."""
+    del use_weights_mask
+    input = util.as_tensor(input)
+    ax = util.check_axes(axes, input.ndim)
+    if len(ax) != input.ndim:
+        weights = _axes_embed_array(
+            _as_weights(weights), ax, input.ndim, "filter weights")
+        origin = util.expand_axes_arg(origin, ax, input.ndim, "origin", 0,
+                                      int)
+    return _correlate_or_convolve(
+        input, weights, output, mode, cval, origin, True, dtype_mode
+    )
 
 
 def _correlate1d(
@@ -552,3 +686,422 @@ def gaussian_gradient_magnitude(
 
     return generic_gradient_magnitude(input, derivative, output, mode, cval,
                                       axes=axes)
+
+
+# ---------------------------------------------------------------------------
+# min/max filters
+# ---------------------------------------------------------------------------
+
+
+def _axes_embed_array(arr, axes, ndim, name):
+    """Insert singleton dims into a len(axes)-rank footprint/structure/
+    weights array so it spans the full input rank (scipy ``axes``)."""
+    if arr is None:
+        return None
+    a = np.asarray(arr)
+    if a.ndim != len(axes):
+        raise RuntimeError(f"{name} array has incorrect shape")
+    if len(axes) == ndim:
+        return arr
+    for ax in range(ndim):
+        if ax not in axes:
+            a = np.expand_dims(a, ax)
+    return a
+
+
+def _get_footprint(input, size, footprint, allow_separable=True):
+    """Normalize size/footprint: ``(None, sizes)`` for a full rectangle
+    (when ``allow_separable``), else ``(footprint, shape)``."""
+    if size is not None and footprint is not None:
+        warnings.warn(
+            "ignoring size because footprint is set", UserWarning, stacklevel=3
+        )
+    if footprint is None:
+        if size is None:
+            raise RuntimeError("no footprint or filter size provided")
+        sizes = util.fix_sequence_arg(size, input.ndim, "size", int)
+        return None, sizes
+    footprint = np.asarray(footprint, dtype=bool)
+    if footprint.ndim != input.ndim:
+        raise RuntimeError("footprint array has incorrect shape")
+    if not footprint.any():
+        raise ValueError("All-zero footprint is not supported.")
+    if allow_separable and footprint.all():
+        return None, list(footprint.shape)
+    return footprint, list(footprint.shape)
+
+
+def _min_or_max_1d(x, size, axis, mode, cval, origin, is_min):
+    """Running min/max over a ``size`` window along ``axis``."""
+    lo = size // 2 + origin
+    pad_width = [(0, 0)] * x.ndim
+    pad_width[axis] = (lo, size - 1 - lo)
+    taps = []
+    for k in range(size):
+        off = [0] * x.ndim
+        off[axis] = k
+        taps.append(tuple(off))
+    reducer = torch.minimum if is_min else torch.maximum
+    return stencil.reduce_window(x, (taps, pad_width), mode, cval, reducer)
+
+
+def _min_or_max_filter(
+    input, size, footprint, structure, output, mode, cval, origin, is_min
+):
+    """Shared body of the min/max filters.
+
+    With ``structure`` (the grey morphology path) each tap contributes
+    ``x - structure`` (minimum) or ``x + structure`` (maximum).
+    """
+    input = util.as_tensor(input)
+    if structure is None:
+        footprint, sizes = _get_footprint(input, size, footprint)
+    else:
+        structure = np.asarray(structure, dtype=np.float64)
+        if footprint is None:
+            footprint = np.ones(structure.shape, bool)
+        else:
+            footprint = np.asarray(footprint, bool)
+        sizes = list(structure.shape)
+    origins = util.fix_sequence_arg(origin, input.ndim, "origin", int)
+    for o, w in zip(origins, sizes):
+        util.check_origin(o, w)
+    modes = util.fix_sequence_arg(mode, input.ndim, "mode", str)
+    for m in modes:
+        boundary.check_mode(m)
+    out_dtype = dtypes.resolve_output_dtype(output, input.dtype)
+    out_torch = dtypes.to_torch(out_dtype)
+
+    # scipy's minimum_filter and maximum_filter reduce over the SAME
+    # window (no footprint mirroring for max); only grey_dilation
+    # mirrors, and it does so itself before calling this function.
+    if footprint is None and structure is None:
+        windows = [(1.0,) * sz if sz > 1 else None for sz in sizes]
+        if fused_separable.supports(input, windows):
+            # supports() is the gate: a failure past it is a kernel
+            # fault that must surface, never a silent fallback
+            out = fused_separable.fused_separable_minmax(
+                input.contiguous(), sizes, origins, modes, cval, is_min
+            )
+            return out.to(out_torch)
+        x = input
+        for axis in range(input.ndim):
+            if sizes[axis] > 1:
+                x = _min_or_max_1d(
+                    x, sizes[axis], axis, modes[axis], cval, origins[axis],
+                    is_min,
+                )
+        return x.to(out_torch, copy=x is input)
+
+    if structure is not None and (structure != 0).any():
+        taps, pad_width = stencil.footprint_offsets(footprint, origins)
+        # the float64 structure promotes every input, integers included
+        xp = boundary.pad(input, pad_width, modes[0], cval).to(
+            torch.promote_types(input.dtype, torch.float64))
+        comp = None
+        for off in taps:
+            sl = tuple(slice(o, o + n) for o, n in zip(off, input.shape))
+            sval = float(structure[off])
+            piece = xp[sl] - sval if is_min else xp[sl] + sval
+            if comp is None:
+                comp = piece
+            else:
+                comp = (torch.minimum(comp, piece) if is_min
+                        else torch.maximum(comp, piece))
+        return _cast_output(comp, out_dtype)
+
+    offsets = stencil.footprint_offsets(footprint, origins)
+    reducer = torch.minimum if is_min else torch.maximum
+    # ndimage applies a single mode for footprint filters
+    out = stencil.reduce_window(input, offsets, modes[0], cval, reducer)
+    return out.to(out_torch, copy=out is input)
+
+
+def _axes_minmax_args(input, size, footprint, mode, origin, axes):
+    """Expand size/footprint/mode/origin from ``axes``-relative to
+    full rank (identity on the excluded axes)."""
+    ndim = input.ndim
+    axes = util.check_axes(axes, ndim)
+    if len(axes) == ndim:
+        return size, footprint, mode, origin
+    if footprint is not None:
+        footprint = _axes_embed_array(footprint, axes, ndim, "footprint")
+    elif size is not None:
+        size = util.expand_axes_arg(size, axes, ndim, "size", 1, int)
+    mode = util.expand_axes_arg(mode, axes, ndim, "mode", "reflect", str)
+    origin = util.expand_axes_arg(origin, axes, ndim, "origin", 0, int)
+    return size, footprint, mode, origin
+
+
+def minimum_filter(
+    input, size=None, footprint=None, output=None, mode="reflect", cval=0.0,
+    origin=0, *, axes=None,
+):
+    """Multi-dimensional minimum filter (scipy parity incl. ``axes``)."""
+    input = util.as_tensor(input)
+    size, footprint, mode, origin = _axes_minmax_args(
+        input, size, footprint, mode, origin, axes
+    )
+    return _min_or_max_filter(
+        input, size, footprint, None, output, mode, cval, origin, True
+    )
+
+
+def maximum_filter(
+    input, size=None, footprint=None, output=None, mode="reflect", cval=0.0,
+    origin=0, *, axes=None,
+):
+    """Multi-dimensional maximum filter (scipy parity incl. ``axes``)."""
+    input = util.as_tensor(input)
+    size, footprint, mode, origin = _axes_minmax_args(
+        input, size, footprint, mode, origin, axes
+    )
+    return _min_or_max_filter(
+        input, size, footprint, None, output, mode, cval, origin, False
+    )
+
+
+def _min_or_max_filter1d(input, size, axis, output, mode, cval, origin,
+                         is_min):
+    input = util.as_tensor(input)
+    axis = util.check_axis(axis, input.ndim)
+    util.check_origin(origin, size)
+    boundary.check_mode(mode)
+    out_dtype = dtypes.resolve_output_dtype(output, input.dtype)
+    out = _min_or_max_1d(input, size, axis, mode, cval, origin, is_min)
+    return out.to(dtypes.to_torch(out_dtype), copy=out is input)
+
+
+def minimum_filter1d(
+    input, size, axis=-1, output=None, mode="reflect", cval=0.0, origin=0
+):
+    """1-d minimum filter (scipy parity)."""
+    return _min_or_max_filter1d(input, size, axis, output, mode, cval,
+                                origin, True)
+
+
+def maximum_filter1d(
+    input, size, axis=-1, output=None, mode="reflect", cval=0.0, origin=0
+):
+    """1-d maximum filter (scipy parity)."""
+    return _min_or_max_filter1d(input, size, axis, output, mode, cval,
+                                origin, False)
+
+
+# ---------------------------------------------------------------------------
+# rank filters
+# ---------------------------------------------------------------------------
+
+
+def _rank_filter(input, rank_fn, size, footprint, output, mode, cval, origin):
+    """Shared body of the rank filters.
+
+    Footprints of at most 64 taps run a rank-pruned Batcher network
+    (``ops/sorting_networks.py``): on the card in the rank kernel, else
+    over shifted slices; larger footprints sort the stacked windows.
+    """
+    input = util.as_tensor(input)
+    footprint, sizes = _get_footprint(input, size, footprint,
+                                      allow_separable=False)
+    if footprint is None:
+        footprint = np.ones(tuple(sizes), dtype=bool)
+    origins = util.fix_sequence_arg(origin, input.ndim, "origin", int)
+    for o, w in zip(origins, footprint.shape):
+        util.check_origin(o, w)
+    boundary.check_mode(mode)
+    out_dtype = dtypes.to_torch(dtypes.resolve_output_dtype(output,
+                                                            input.dtype))
+    filter_size = int(footprint.sum())
+    rank = rank_fn(filter_size)
+    if rank < 0:
+        rank += filter_size
+    if rank < 0 or rank >= filter_size:
+        raise RuntimeError("rank not within filter footprint size")
+    if rank == 0:
+        return _min_or_max_filter(
+            input, None, footprint, None, output, mode, cval, origins, True
+        )
+    if rank == filter_size - 1:
+        return _min_or_max_filter(
+            input, None, footprint, None, output, mode, cval, origins, False
+        )
+    if filter_size <= fused_rank.MAX_RANK_TAPS:
+        if (fused_rank.supports_rank(input, filter_size)
+                and out_dtype == input.dtype):
+            return fused_rank.fused_rank_filter(
+                input.contiguous(), footprint, origins, rank, mode, cval
+            )
+        taps, pad_width = stencil.footprint_offsets(footprint, origins)
+        xp = boundary.pad(input, pad_width, mode, cval)
+        vals = [
+            xp[tuple(slice(o, o + n) for o, n in zip(off, input.shape))]
+            for off in taps
+        ]
+        return rank_select(vals, rank).to(out_dtype)
+    windows = stencil.gather_windows(input, footprint, origins, mode, cval)
+    return torch.sort(windows, dim=0).values[rank].to(out_dtype)
+
+
+def _axes_rank_args(input, size, footprint, origin, axes):
+    ndim = input.ndim
+    axes = util.check_axes(axes, ndim)
+    if len(axes) == ndim:
+        return size, footprint, origin
+    if footprint is not None:
+        footprint = _axes_embed_array(footprint, axes, ndim, "footprint")
+    elif size is not None:
+        size = util.expand_axes_arg(size, axes, ndim, "size", 1, int)
+    origin = util.expand_axes_arg(origin, axes, ndim, "origin", 0, int)
+    return size, footprint, origin
+
+
+def rank_filter(
+    input, rank, size=None, footprint=None, output=None, mode="reflect",
+    cval=0.0, origin=0, *, axes=None,
+):
+    """Multi-dimensional rank filter (scipy parity incl. ``axes``)."""
+    if not isinstance(rank, (int, np.integer)):
+        raise TypeError("rank must be an integer")  # as scipy: no float rank
+    rank = int(rank)
+    input = util.as_tensor(input)
+    size, footprint, origin = _axes_rank_args(input, size, footprint,
+                                              origin, axes)
+    return _rank_filter(
+        input, lambda fs: rank, size, footprint, output, mode, cval, origin
+    )
+
+
+def median_filter(
+    input, size=None, footprint=None, output=None, mode="reflect", cval=0.0,
+    origin=0, *, axes=None,
+):
+    """Multi-dimensional median filter (scipy parity incl. ``axes``)."""
+    input = util.as_tensor(input)
+    size, footprint, origin = _axes_rank_args(input, size, footprint,
+                                              origin, axes)
+    return _rank_filter(
+        input, lambda fs: fs // 2, size, footprint, output, mode, cval, origin
+    )
+
+
+def percentile_filter(
+    input, percentile, size=None, footprint=None, output=None,
+    mode="reflect", cval=0.0, origin=0, *, axes=None,
+):
+    """Multi-dimensional percentile filter (scipy parity incl. ``axes``)."""
+    percentile = float(percentile)
+    if percentile < 0.0:
+        percentile += 100.0
+    if percentile < 0 or percentile > 100:
+        raise RuntimeError("invalid percentile")
+
+    def get_rank(fs):
+        if percentile == 100.0:
+            return fs - 1
+        return int(float(fs) * percentile / 100.0)
+
+    input = util.as_tensor(input)
+    size, footprint, origin = _axes_rank_args(input, size, footprint,
+                                              origin, axes)
+    return _rank_filter(
+        input, get_rank, size, footprint, output, mode, cval, origin
+    )
+
+
+# ---------------------------------------------------------------------------
+# generic filters
+# ---------------------------------------------------------------------------
+
+
+def generic_filter(
+    input,
+    function,
+    size=None,
+    footprint=None,
+    output=None,
+    mode="reflect",
+    cval=0.0,
+    origin=0,
+    extra_arguments=(),
+    extra_keywords=None,
+):
+    """Multi-dimensional filter with a user-supplied window reduction.
+
+    ``function`` receives the footprint values of one window as a 1-d
+    tensor and returns a scalar tensor.  It is mapped over every window
+    with ``torch.func.vmap``, so it must be written in torch ops that
+    vmap supports (no Python side effects, no data-dependent control
+    flow).
+    """
+    if extra_keywords is None:
+        extra_keywords = {}
+    input = util.as_tensor(input)
+    footprint, sizes = _get_footprint(
+        input, size, footprint, allow_separable=False
+    )
+    if footprint is None:
+        footprint = np.ones(tuple(sizes), bool)
+    origins = util.fix_sequence_arg(origin, input.ndim, "origin", int)
+    for o, w in zip(origins, footprint.shape):
+        util.check_origin(o, w)
+    boundary.check_mode(mode)
+    out_dtype = dtypes.resolve_output_dtype(output, input.dtype)
+    windows = stencil.gather_windows(input, footprint, origins, mode, cval)
+    flat = windows.reshape(windows.shape[0], -1).T
+
+    def apply_fn(w):
+        return function(w, *extra_arguments, **extra_keywords)
+
+    out = torch.func.vmap(apply_fn)(flat)
+    return out.reshape(input.shape).to(dtypes.to_torch(out_dtype))
+
+
+def generic_filter1d(
+    input,
+    function,
+    filter_size,
+    axis=-1,
+    output=None,
+    mode="reflect",
+    cval=0.0,
+    origin=0,
+    extra_arguments=(),
+    extra_keywords=None,
+):
+    """1-d generic filter along ``axis`` (scipy parity).
+
+    ``function`` receives one boundary-extended input line (length
+    ``line + filter_size - 1``) and returns the filtered line of the
+    original length: the functional form of scipy's in-place
+    ``(iline, oline)`` callback.  It is mapped over the lines with
+    ``torch.func.vmap`` and must be written in torch ops vmap supports.
+    """
+    if extra_keywords is None:
+        extra_keywords = {}
+    input = util.as_tensor(input)
+    if filter_size < 1:
+        raise RuntimeError("invalid filter size")
+    axis = util.check_axis(axis, input.ndim)
+    util.check_origin(origin, filter_size)
+    boundary.check_mode(mode)
+    out_dtype = dtypes.resolve_output_dtype(output, input.dtype)
+
+    size = int(filter_size)
+    lo = size // 2 + int(origin)
+    pad_width = [(0, 0)] * input.ndim
+    pad_width[axis] = (lo, size - 1 - lo)
+    xp = boundary.pad(input, pad_width, mode, cval)
+    moved = torch.movedim(xp, axis, -1)
+    lines = moved.reshape(-1, moved.shape[-1])
+
+    def apply_fn(iline):
+        return function(iline, *extra_arguments, **extra_keywords)
+
+    out = torch.func.vmap(apply_fn)(lines)
+    n = input.shape[axis]
+    if out.shape[-1] != n:
+        raise RuntimeError(
+            "function must return lines of the original length"
+        )
+    out = out.reshape(moved.shape[:-1] + (n,))
+    return torch.movedim(out, -1, axis).to(dtypes.to_torch(out_dtype))

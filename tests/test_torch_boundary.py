@@ -71,6 +71,18 @@ def test_pad_integer_input():
         np.testing.assert_array_equal(got.numpy(), exp)
 
 
+@pytest.mark.parametrize("dtype", [np.uint8, np.int16, np.int32])
+@pytest.mark.parametrize("cval", [-1.0, 300.7, 2.9, -2.9, 1e12])
+def test_pad_integer_cval_out_of_range_saturates(dtype, cval):
+    """An integer array takes cval truncated and saturated at its range,
+    as cupyimg_tpu converts it (torch.tensor(cval, dtype) would raise)."""
+    x = np.arange(12, dtype=dtype).reshape(3, 4)
+    exp = np.asarray(jb.pad(jnp.asarray(x), ((1, 2), (3, 0)), "constant",
+                            cval))
+    got = tb.pad(torch.from_numpy(x), ((1, 2), (3, 0)), "constant", cval)
+    np.testing.assert_array_equal(got.numpy(), exp)
+
+
 def test_pad_per_axis_modes():
     """One combined extension with a mode per axis, as the fused kernel
     extends its input: axis by axis, each with its own mode."""

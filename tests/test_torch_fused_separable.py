@@ -3,7 +3,7 @@
 - Its plain version against cupyimg_tpu's Pallas kernel run by the Pallas
   interpreter on the CPU (``interpret=True``), on the same numpy inputs:
   atol 2e-6 (float32, taps that sum to 1, inputs in [0, 1)), 1e-5 for
-  the 64-tap case.
+  the 64-tap case; the min/max op exactly.
 - Its plain version against a float64 numpy statement of the function
   (extend the raw input once, then correlate each axis), where the
   Pallas lane-matmul plan departs from it (constant mode, nonzero cval,
@@ -26,6 +26,7 @@ import jax.numpy as jnp
 
 from cupyimg_tpu.ops.pallas_stencil import (
     fused_separable_correlate as jax_fused,
+    fused_separable_minmax as jax_minmax,
 )
 from cupyimg_tpu_torch.ops import fused_separable as fs
 
@@ -79,6 +80,48 @@ def test_plain_version_matches_pallas_interpret(name):
     assert fs.fused_separable_correlate.launches == before  # CPU: no launch
     assert got.dtype == torch.float32 and got.shape == x.shape
     np.testing.assert_allclose(got.numpy(), exp, rtol=0, atol=atol)
+
+
+MINMAX_CASES = {
+    # name: (shape, sizes, origins, modes, cval, is_min)
+    "3d-min-modes-origins-skip": (
+        (12, 10, 20), (3, 1, 4), (1, 0, -2),
+        ("constant", "wrap", "mirror"), 0.5, True),
+    "2d-max-short-axis": ((6, 30), (9, 2), (0, 0),
+                          ("reflect", "grid-constant"), -0.25, False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(MINMAX_CASES))
+def test_minmax_plain_version_matches_pallas_interpret(name):
+    shape, sizes, origins, modes, cval, is_min = MINMAX_CASES[name]
+    x = np.random.RandomState(1).randn(*shape).astype(np.float32)
+    exp = np.asarray(jax_minmax(jnp.asarray(x), sizes, origins, modes, cval,
+                                is_min, interpret=True))
+    before = fs.fused_separable_minmax.launches
+    got = fs.fused_separable_minmax(torch.from_numpy(x), sizes, origins,
+                                    modes, cval, is_min)
+    assert fs.fused_separable_minmax.launches == before  # CPU: no launch
+    np.testing.assert_array_equal(got.numpy(), exp)
+
+
+def test_minmax_plain_version_extends_once_and_keeps_nan():
+    """Extending the raw input once equals scipy's per-pass re-extension
+    for a box extremum, under every mode; a NaN spreads over its box."""
+    import scipy.ndimage as sndi
+
+    x = np.random.RandomState(2).rand(7, 9, 11)
+    for mode in ("reflect", "mirror", "nearest", "wrap", "constant"):
+        got = fs.fused_separable_minmax_ref(
+            torch.from_numpy(x), (3, 4, 2), (0, 1, 0), (mode,) * 3, 0.75,
+            False)
+        exp = sndi.maximum_filter(x, (3, 4, 2), mode=mode, cval=0.75,
+                                  origin=(0, 1, 0))
+        np.testing.assert_array_equal(got.numpy(), exp)
+    x[3, 4, 5] = np.nan
+    got = fs.fused_separable_minmax_ref(torch.from_numpy(x), (3, 3, 3),
+                                        (0, 0, 0), ("reflect",) * 3)
+    assert torch.isnan(got).sum() == 27 and torch.isnan(got[2:5, 3:6, 4:7]).all()
 
 
 def _extend_once_reference(x, weights, origins, modes, cval):
@@ -189,7 +232,9 @@ def test_port_never_imports_jax():
     )
     files = sorted((REPO / "cupyimg_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
-    assert len(files) > 10
+    names = {f.name for f in files}
+    assert {"fused_separable.py", "fused_dense.py", "fused_rank.py",
+            "sorting_networks.py", "stencil.py", "filters.py"} <= names
     for f in files:
         hits = pattern.findall(f.read_text())
         assert not hits, f"{f} imports {hits}"
@@ -215,3 +260,19 @@ def test_kernel_matches_plain_version(cuda, name):
     torch.cuda.synchronize()
     np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
                                rtol=0, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(MINMAX_CASES))
+def test_minmax_kernel_matches_plain_version(cuda, name):
+    shape, sizes, origins, modes, cval, is_min = MINMAX_CASES[name]
+    x = np.random.RandomState(1).randn(*shape).astype(np.float32)
+    x[2, 3] = np.nan
+    xc = torch.from_numpy(x).cuda()
+    before = fs.fused_separable_minmax.launches
+    got = fs.fused_separable_minmax(xc, sizes, origins, modes, cval, is_min)
+    assert fs.fused_separable_minmax.launches == before + 1
+    ref = fs.fused_separable_minmax_ref(xc, sizes, origins, modes, cval,
+                                        is_min)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), ref.cpu().numpy())
