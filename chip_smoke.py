@@ -13,11 +13,19 @@ Phases, each fatal on failure (a traceback and a non-zero exit):
    skipped axes, short axes and 4..64 taps (tolerance from the taps);
    its min/max op, the rank kernel (exact, NaN included) and the dense
    kernel (1e-5 * sum|w| * max|x|) over every mode, origins at both ends,
-   short axes and the most extended footprints their gates admit;
-4. the main path: eleven public ``scipy.ndimage`` calls at full size
-   (256^3 and 2048^2/4096^2 float32, a 4096^2 int32 image), each checked
-   to launch its kernel exactly once and to agree with scipy.ndimage on
-   the host (float64 for the correlations, exactly for min/max/rank);
+   short axes and the most extended footprints their gates admit; the
+   spline gather (both entries, orders 0-5, every mode, float32/float64
+   data and coordinates, 2-D and 3-D, knife-edge and far-out
+   coordinates, NaN and complex data: 1e-5 / 1e-12 of max|x|, order 0
+   exactly) and the spline prefilter's FIR on the fused separable kernel
+   against the recursion (orders 2-5, 1e-5 of the coefficients' range);
+4. the main path: eleven public ``scipy.ndimage`` filter calls and ten
+   interpolation calls at full size (256^3 and 2048^2/4096^2 float32, a
+   4096^2 int32 image), each checked to launch its kernels exactly as
+   often as planned (one spline gather per interpolation, plus one fused
+   separable launch per pole where it prefilters) and to agree with
+   scipy.ndimage on the host (float64 for the correlations and
+   interpolations, exactly for min/max/rank and order 0);
 5. times from CUDA events (median over up to 100 launches after a
    warm-up), printed as one ``{"cases": ...}`` and one ``{"kernels":
    ...}`` JSON line, with each kernel's bound and a PyTorch yardstick.
@@ -38,6 +46,7 @@ import numpy as np
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
 PEAK_MINMAX = 33.5e12
+PEAK_FP64 = 34e12  # float64 outside the tensor cores
 N_TIMED = 100
 MODES = ("reflect", "mirror", "nearest", "wrap", "constant",
          "grid-mirror", "grid-wrap", "grid-constant")
@@ -57,10 +66,10 @@ def card_line():
     return out.strip().splitlines()[0]
 
 
-def median_ms(fn, *args, n=N_TIMED):
+def median_ms(fn, *args, n=N_TIMED, n_warmup=5):
     from cupyimg_tpu_torch.time import repeat
 
-    res = repeat(fn, args, n_repeat=n, n_warmup=5)
+    res = repeat(fn, args, n_repeat=n, n_warmup=n_warmup)
     return float(np.median(res.gpu_times[0]) * 1e3)
 
 
@@ -68,27 +77,34 @@ def kernel_ms(launch, kernel, n=20):
     """Device time of one launch of the CUDA kernel named ``kernel``
     alone, from torch.profiler over ``n`` calls of ``launch``: the wrapper's
     host work (planning, argument checks) is left out.  None when the
-    profiler records no such kernel."""
+    profiler records no such kernel.  The profiler can lose kernel
+    records (a run of 20 calls once came back with 16): such a run is
+    profiled again, up to three times; more records than calls fail."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     launch()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            launch()
-        torch.cuda.synchronize()
-    total_us, count = 0.0, 0
-    for ev in prof.key_averages():
-        if kernel in ev.key:
-            total_us += getattr(ev, "device_time_total",
-                                getattr(ev, "cuda_time_total", 0.0))
-            count += ev.count
-    if count == 0:
-        return None
-    check(count == n, f"{kernel}: {count} launches profiled, not {n}")
-    return total_us / count / 1e3
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                launch()
+            torch.cuda.synchronize()
+        total_us, count = 0.0, 0
+        for ev in prof.key_averages():
+            if kernel in ev.key:
+                total_us += getattr(ev, "device_time_total",
+                                    getattr(ev, "cuda_time_total", 0.0))
+                count += ev.count
+        if count == 0:
+            return None
+        check(count <= n, f"{kernel}: {count} launches profiled, not {n}")
+        if count == n:
+            return total_us / count / 1e3
+        print(f"{kernel}: the profiler recorded {count} of {n} launches; "
+              "profiling again")
+    check(False, f"{kernel}: {count} launches profiled, not {n}")
 
 
 def bound(numel, flops=0.0, minmax_ops=0.0):
@@ -98,6 +114,28 @@ def bound(numel, flops=0.0, minmax_ops=0.0):
     voxel at PEAK_MINMAX."""
     t_bytes = 8 * numel / PEAK_BYTES
     t_ops = numel * (flops / PEAK_FP32 + minmax_ops / PEAK_MINMAX)
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else
+                                       "operations")
+
+
+# float64 operations per axis of one output sample of the spline gather:
+# the weights of each order (ops/interp.py:spline_weights plus the floor
+# and the fraction), counted from the code
+W_OPS = {0: 2, 1: 4, 2: 11, 3: 21, 4: 33, 5: 47}
+
+
+def gather_bound(n_in, n_out, orders, coord_ops=0, coord_bytes=0,
+                 weights_f64=True):
+    """(bound_ms, bound_by) of one spline gather of 4-byte data: one
+    read of the input, the coordinate field and one write of the output
+    at PEAK_BYTES, against 2 flops per tap (float32) plus the
+    coordinate and weight arithmetic (float64 at PEAK_FP64 unless the
+    coordinates are float32)."""
+    taps = int(np.prod([o + 1 for o in orders]))
+    w_ops = coord_ops + sum(W_OPS[o] for o in orders)
+    t_bytes = (4 * (n_in + n_out) + coord_bytes) / PEAK_BYTES
+    t_ops = n_out * (2 * taps / PEAK_FP32
+                     + w_ops / (PEAK_FP64 if weights_f64 else PEAK_FP32))
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else
                                        "operations")
 
@@ -341,45 +379,196 @@ def rank_vs_plain(fr, torch):
         check(ok, f"rank {name}: kernel differs from its plain version")
 
 
+def knife_coords(shape, out_shape, rng, dtype):
+    """A (ndim, *out_shape) coordinate field: uniform over and beyond the
+    domain, with knife edges mixed in on every axis (integers,
+    half-integers, -0.5, n-1, n-0.5) and far-out points."""
+    size = int(np.prod(out_shape))
+    out = []
+    for n in shape:
+        special = np.concatenate([
+            np.arange(-3, n + 3, dtype=np.float64),
+            np.arange(-3, n + 3) + 0.5,
+            [-0.5, n - 1, n - 0.5, -1e6, 1e6, -3.7e9, 5.1e9],
+        ])
+        c = rng.uniform(-2 * n, 3 * n, size)
+        c[rng.choice(size, min(size, len(special)), replace=False)] = (
+            special[:size])
+        out.append(c.reshape(out_shape))
+    return np.stack(out).astype(dtype)
+
+
+def spline_gather_vs_plain(sg, torch):
+    """The spline gather against its plain version (gather_general):
+    within 1e-5 (float32 data) / 1e-12 (float64) of max(|x|, |cval|),
+    order 0 exactly, NaN positions included."""
+    rng = np.random.RandomState(7)
+    cval = 0.5
+    n_cases = 0
+    worst = {}
+
+    def compare(tag, got, ref, order, tol, scale):
+        nonlocal n_cases
+        torch.cuda.synchronize()
+        n_cases += 1
+        check(got.shape == ref.shape and got.dtype == ref.dtype,
+              f"spline_gather {tag}: shape/dtype {got.shape} {got.dtype}")
+        if order == 0:
+            ok = same(torch.view_as_real(got) if got.is_complex() else got,
+                      torch.view_as_real(ref) if ref.is_complex() else ref)
+            check(ok, f"spline_gather {tag}: order 0 differs from plain")
+            err = 0.0
+        else:
+            gn, rn = got.isnan(), ref.isnan()
+            check(torch.equal(gn, rn), f"spline_gather {tag}: NaN differs")
+            err = float((got - ref).masked_fill(gn, 0).abs().max())
+            check(err <= tol * scale,
+                  f"spline_gather {tag}: {err:.3e} > {tol * scale:.1e}")
+        key = tag.split(" ")[0]
+        worst[key] = max(worst.get(key, 0.0), err / scale)
+
+    shapes = {2: ((37, 45), (23, 19)), 3: ((9, 14, 17), (7, 9, 11))}
+    mats = {
+        2: [(np.array([[0.8, 0.65], [-0.6, 0.9]]), np.array([3.3, -4.1])),
+            # knife edges: half-integer steps from -0.5
+            (np.array([[0.5, 0.0], [0.25, 1.5]]), np.array([-0.5, 0.25]))],
+        3: [(np.array([[1.0, 0, 0], [0, 0.8, 0.6], [0, -0.6, 0.8]]),
+             np.array([0.0, 2.5, -3.0])),
+            (np.array([[0.9, 0.1, 0.2], [-0.1, 1.2, 0.0], [0.3, 0.0, 0.7]]),
+             np.array([-1.5, 0.5, 2.0]))],
+    }
+    for ndim, (shape, out_shape) in shapes.items():
+        for dt, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+            x = torch.from_numpy(rng.rand(*shape) - 0.25).to(dt).cuda()
+            scale = max(float(x.abs().max()), cval)
+            for order in range(6):
+                for mi, mode in enumerate(MODES):
+                    # both coordinate dtypes on float32 data, in turn
+                    cdt = (np.float64 if dt == torch.float64 or mi % 2
+                           else np.float32)
+                    c = torch.from_numpy(knife_coords(
+                        shape, out_shape, rng, cdt)).cuda()
+                    tag = f"map-{ndim}d-{str(dt)[6:]} o{order} {mode}"
+                    compare(tag, sg.spline_map(x, c, order, mode, cval),
+                            sg.spline_map_ref(x, c, order, mode, cval),
+                            order, tol, scale)
+                    m, off = mats[ndim][mi % 2]
+                    # the plane route: order 0 on an identity axis
+                    orders = ([0, order, order] if ndim == 3 and mi % 2 == 0
+                              else order)
+                    ct = torch.float32 if cdt == np.float32 else torch.float64
+                    args = (x, m, off, out_shape, orders, mode, cval,
+                            ct)
+                    tag = f"affine-{ndim}d-{str(dt)[6:]} o{order} {mode}"
+                    compare(tag, sg.spline_affine(*args),
+                            sg.spline_affine_ref(*args), order, tol, scale)
+    # 5 % NaN, and complex data with a complex cval
+    x = torch.from_numpy(rng.rand(40, 50).astype(np.float32)).cuda()
+    x[torch.from_numpy(rng.rand(40, 50) < 0.05).cuda()] = float("nan")
+    c = torch.from_numpy(knife_coords((40, 50), (30, 31), rng,
+                                      np.float32)).cuda()
+    for order in range(6):
+        for mode in ("reflect", "constant", "grid-constant", "wrap"):
+            compare(f"nan-2d o{order} {mode}",
+                    sg.spline_map(x, c, order, mode, cval),
+                    sg.spline_map_ref(x, c, order, mode, cval), order, 1e-5,
+                    1.0)
+    for dt, tol in ((torch.complex64, 1e-5), (torch.complex128, 1e-12)):
+        xc = torch.from_numpy(rng.rand(9, 14, 17) + 1j * rng.rand(9, 14, 17)
+                              ).to(dt).cuda()
+        c = torch.from_numpy(knife_coords(xc.shape, (7, 9, 11), rng,
+                                          np.float64)).cuda()
+        for order in (0, 1, 3, 5):
+            for mode in ("mirror", "grid-constant"):
+                compare(f"complex-{str(dt)[6:]} o{order} {mode}",
+                        sg.spline_map(xc, c, order, mode, 0.5 - 0.25j),
+                        sg.spline_map_ref(xc, c, order, mode, 0.5 - 0.25j),
+                        order, tol, float(xc.abs().max()))
+    for key, err in sorted(worst.items()):
+        print(f"kernel-vs-plain spline_gather {key:18s} "
+              f"max_err/scale {err:.3e}")
+    print(f"kernel-vs-plain spline_gather: {n_cases} cases passed")
+
+
+def prefilter_vs_plain(iir, torch):
+    """The spline prefilter's FIR (one fused separable launch per pole)
+    against the recursion, float32, within 1e-5 of the coefficients'
+    max|c| (inputs in [0, 1); the 3-D order-5 coefficients reach 64,
+    and both float32 routes sit within 5e-7 * max|c| of float64)."""
+    rng = np.random.RandomState(8)
+    for shape in ((200, 300), (40, 50, 60)):
+        x = torch.from_numpy(rng.rand(*shape).astype(np.float32)).cuda()
+        axes = tuple(range(x.ndim))
+        worst = 0.0
+        for order in (2, 3, 4, 5):
+            for mode in ("mirror", "reflect", "grid-wrap", "nearest"):
+                got = iir.spline_filter_fir(x, order, axes, mode)
+                check(got is not None, f"FIR gate refused {shape} {order}")
+                ref = x
+                for ax in axes:
+                    ref = iir.spline_filter1d(ref, order, ax, mode)
+                torch.cuda.synchronize()
+                err = float((got - ref).abs().max() / ref.abs().max())
+                check(err <= 1e-5, f"prefilter {shape} order {order} "
+                                   f"{mode}: {err:.3e} of max|c|")
+                worst = max(worst, err)
+        print(f"kernel-vs-plain prefilter FIR {str(shape):14s} orders 2-5 "
+              f"x 4 modes max_err/max|c| {worst:.3e} (tol 1e-5)")
+
+
 # ---------------------------------------------------------------------------
 # phase 5: times
 # ---------------------------------------------------------------------------
 
 
-def time_row(label, launch, plain, x, bound_ms_by, library=None,
+def time_row(label, launch, plain, x, bound_ms_by, atol, library=None,
              library_call=None, n_plain=20, kernel=None):
     """One timed case: the kernel's wrapper (``ms``, CUDA events around
     each call, so host work that starves the card counts), the kernel
     alone (``kernel_ms``, profiler), its plain version, a copy of the
     input and, where there is one, the library yardstick (whose result is
-    checked against the plain version's)."""
+    checked against the plain version's).  The kernel's result is held
+    against its plain version's on the same full-size inputs: within
+    ``atol`` (a number, or a function of the plain result), exactly
+    where it is 0 (NaN positions included)."""
     import torch
 
     y = launch()
     ref = plain()
-    if y.is_floating_point():
-        err = float((y - ref).abs().nan_to_num().max())
+    torch.cuda.synchronize()
+    tol = atol(ref) if callable(atol) else atol
+    if tol == 0:
+        err = 0.0
+        check(same(y, ref), f"{label}: kernel differs from its plain version")
     else:
+        check(y.shape == ref.shape and y.dtype == ref.dtype
+              and bool(torch.isfinite(y).all()), f"{label}: bad output")
         err = float((y - ref).abs().max())
+        check(err <= tol, f"{label}: kernel disagrees with its plain version "
+                          f"({err:.3e} > {tol:.1e})")
+    print(f"time-row kernel-vs-plain {label:48s} max_abs_err {err:.3e} "
+          f"({'exact' if tol == 0 else f'atol {tol:.1e}'})")
     out = torch.empty_like(x)
     row = {
         "case": label,
         "ms": median_ms(launch),
         "kernel_ms": None if kernel is None else kernel_ms(launch, kernel),
-        "plain_ms": median_ms(plain, n=n_plain),
+        "plain_ms": median_ms(plain, n=n_plain, n_warmup=min(5, n_plain)),
         "copy_ms": median_ms(out.copy_, x),
         "bound_ms": bound_ms_by[0],
         "bound_by": bound_ms_by[1],
         "library_ms": None,
         "library_call": library_call,
         "max_abs_err": err,
+        "atol": tol,
     }
     if library is not None:
         fn, tol = library
-        lib_err = float((fn().reshape(ref.shape).to(ref.dtype) - ref)
-                        .abs().max())
-        check(lib_err <= tol,
-              f"{label}: library yardstick disagrees ({lib_err:.2e})")
+        if tol is not None:  # None: another function, timed only
+            lib_err = float((fn().reshape(ref.shape).to(ref.dtype) - ref)
+                            .abs().max())
+            check(lib_err <= tol,
+                  f"{label}: library yardstick disagrees ({lib_err:.2e})")
         row["library_ms"] = median_ms(fn, n=20)
     return row
 
@@ -399,6 +588,8 @@ def main():
     from cupyimg_tpu_torch.ops import fused_dense as fd
     from cupyimg_tpu_torch.ops import fused_rank as fr
     from cupyimg_tpu_torch.ops import fused_separable as fs
+    from cupyimg_tpu_torch.ops import iir
+    from cupyimg_tpu_torch.ops import spline_gather as sg
     from cupyimg_tpu_torch.scipy.ndimage.filters import _gaussian_kernel1d
 
     t_start = time.perf_counter()
@@ -426,6 +617,8 @@ def main():
     minmax_vs_plain(fs, torch)
     dense_vs_plain(fd, torch)
     rank_vs_plain(fr, torch)
+    spline_gather_vs_plain(sg, torch)
+    prefilter_vs_plain(iir, torch)
     print(f"kernel-vs-plain: {time.perf_counter() - t0:.1f} s")
 
     # -- phase 4: the main path through the public API ----------------------
@@ -442,14 +635,41 @@ def main():
     imgc = torch.from_numpy(img).cuda()
     imgc_i = torch.from_numpy(img_i).cuda()
     torch.cuda.synchronize()
+    # interpolation inputs: bench_suite.py's matrices and smooth warp
+    mat = np.array([[0.9, 0.1], [-0.1, 0.9]], np.float32)
+    r40 = np.deg2rad(40.0)
+    rot40 = np.array([[np.cos(r40), np.sin(r40)],
+                      [-np.sin(r40), np.cos(r40)]], np.float32)
+    rr, cc = np.mgrid[0:2048, 0:2048].astype(np.float32)
+    warp = np.stack([
+        rr + 11.0 * np.sin(cc / 97.0) + 5.0 * np.cos(rr / 53.0),
+        cc + 9.0 * np.cos(rr / 71.0) - 4.0 * np.sin(cc / 89.0),
+    ])
+    del rr, cc
+    warpc = torch.from_numpy(warp).cuda()
     counters = {
         "fused_separable_correlate": fs.fused_separable_correlate,
         "fused_separable_minmax": fs.fused_separable_minmax,
         "fused_dense_correlate": fd.fused_dense_correlate,
         "fused_rank_filter": fr.fused_rank_filter,
+        "spline_gather": sg,
     }
     f64 = np.float64
-    # (label, kernel, call, scipy reference, atol; 0 = exact)
+    gather = {"spline_gather": 1}
+
+    def prefiltered(poles):
+        return {"spline_gather": 1, "fused_separable_correlate": poles}
+
+    def coef_tol(order, ndim):
+        """1e-5 of the largest spline coefficient inputs in [0, 1) can
+        have: each pole's FIR sums to ((1+|z|)/(1-|z|))^2 in absolute
+        value, per axis (9 for order 3 in 2-D, 56 for order 5)."""
+        g = np.prod([((1 + abs(z)) / (1 - abs(z))) ** 2
+                     for z in iir.get_poles(order)])
+        return 1e-5 * g ** ndim
+
+    # (label, kernel or {kernel: launches}, call, scipy reference, atol;
+    # 0 = exact)
     main_path = [
         ("uniform_filter(256^3 f32, size=5)", "fused_separable_correlate",
          lambda: ndi.uniform_filter(xc3, size=5),
@@ -487,6 +707,59 @@ def main():
         ("rank_filter(4096^2 i32, 2, cross)", "fused_rank_filter",
          lambda: ndi.rank_filter(imgc_i, 2, footprint=cross),
          lambda: sndi.rank_filter(img_i, 2, footprint=cross), 0),
+        # interpolation: order 0 exactly (the coordinates are exact in
+        # float64 for these float32 matrices), else within 1e-5 of the
+        # inputs' range [0, 1), or of the spline coefficients' largest
+        # possible magnitude where the call prefilters (coef_tol)
+        ("affine_transform(4096^2 f32, order=0)", gather,
+         lambda: ndi.affine_transform(imgc, mat, order=0, mode="nearest",
+                                      prefilter=False),
+         lambda: sndi.affine_transform(img, mat, order=0, mode="nearest",
+                                       prefilter=False), 0),
+        ("affine_transform(4096^2 f32, order=1)", gather,
+         lambda: ndi.affine_transform(imgc, mat, order=1, mode="nearest",
+                                      prefilter=False),
+         lambda: sndi.affine_transform(img.astype(f64), mat, order=1,
+                                       mode="nearest", prefilter=False),
+         1e-5),
+        ("affine_transform(4096^2 f32, order=3)", gather,
+         lambda: ndi.affine_transform(imgc, mat, order=3, mode="nearest",
+                                      prefilter=False),
+         lambda: sndi.affine_transform(img.astype(f64), mat, order=3,
+                                       mode="nearest", prefilter=False),
+         1e-5),
+        ("affine_transform(4096^2 f32, rot40, order=1)", gather,
+         lambda: ndi.affine_transform(imgc, rot40, order=1, mode="nearest",
+                                      prefilter=False),
+         lambda: sndi.affine_transform(img.astype(f64), rot40, order=1,
+                                       mode="nearest", prefilter=False),
+         1e-5),
+        ("rotate(256^3 f32, 17, axes=(1, 2), order=1)", gather,
+         lambda: ndi.rotate(xc3, 17, axes=(1, 2), reshape=False, order=1,
+                            mode="nearest", prefilter=False),
+         lambda: sndi.rotate(x3.astype(f64), 17, axes=(1, 2), reshape=False,
+                             order=1, mode="nearest", prefilter=False),
+         1e-5),
+        ("map_coordinates(2048^2 f32, warp, order=1)", gather,
+         lambda: ndi.map_coordinates(xc2, warpc, order=1, mode="reflect"),
+         lambda: sndi.map_coordinates(x2.astype(f64), warp, order=1,
+                                      mode="reflect"), 1e-5),
+        ("map_coordinates(2048^2 f32, warp, order=3)", prefiltered(1),
+         lambda: ndi.map_coordinates(xc2, warpc, order=3, mode="reflect"),
+         lambda: sndi.map_coordinates(x2.astype(f64), warp, order=3,
+                                      mode="reflect"), coef_tol(3, 2)),
+        ("shift(4096^2 f32, (2.3, -1.7), order=5)", prefiltered(2),
+         lambda: ndi.shift(imgc, (2.3, -1.7), order=5, mode="reflect"),
+         lambda: sndi.shift(img.astype(f64), (2.3, -1.7), order=5,
+                            mode="reflect"), coef_tol(5, 2)),
+        ("zoom(2048^2 f32, 2.0, order=3)", prefiltered(1),
+         lambda: ndi.zoom(xc2, 2.0, order=3),
+         lambda: sndi.zoom(x2.astype(f64), 2.0, order=3), coef_tol(3, 2)),
+        ("spline_filter(4096^2 f32, order=3)",
+         {"fused_separable_correlate": 1},
+         lambda: ndi.spline_filter(imgc, order=3, output=np.float32),
+         lambda: sndi.spline_filter(img.astype(f64), order=3),
+         coef_tol(3, 2)),
     ]
     for c in counters.values():
         c.launches = 0
@@ -500,9 +773,11 @@ def main():
     launches = {k: c.launches for k, c in counters.items()}
     for (label, kernel, _, reference, tol), (y, delta) in zip(main_path,
                                                               outputs):
-        want = {k: int(k == kernel) for k in counters}
+        if isinstance(kernel, str):
+            kernel = {kernel: 1}
+        want = {k: kernel.get(k, 0) for k in counters}
         check(delta == want,
-              f"{label} launched {delta}, not once its kernel {kernel}")
+              f"{label} launched {delta}, not as planned: {kernel}")
         exp = reference()
         # every call keeps its input's dtype
         want_dtype = torch.int32 if exp.dtype == np.int32 else torch.float32
@@ -517,7 +792,8 @@ def main():
         else:
             err = float(np.abs(got - exp).max())
             check(err <= tol, f"{label}: disagrees with scipy.ndimage")
-        print(f"main path {label:38s} {kernel:26s} launches 1 "
+        planned = " ".join(f"{k} x{n}" for k, n in kernel.items())
+        print(f"main path {label:45s} {planned:50s} "
               f"max_abs_err vs scipy {err:.3e} "
               f"({'exact' if tol == 0 else f'atol {tol:.1e}'})")
     print(f"main path launches: {json.dumps(launches)}")
@@ -545,10 +821,14 @@ def main():
                               "reflect")[None, None]
             conv = F.conv3d if nd == 3 else F.conv2d
             lib = (lambda: conv(xp, dense), 1e-4 * float(dense.abs().sum()))
+        ws = [w for w in weights if w is not None]
+        normalized = all(abs(sum(w) - 1) < 1e-9 and min(w) >= 0 for w in ws)
+        atol = 2e-6 if normalized else 1e-5 * float(
+            np.prod([np.abs(w).sum() for w in ws]))
         rows[label] = time_row(
             label, lambda: fs.fused_separable_correlate(*args),
             lambda: fs.fused_separable_correlate_ref(*args), x,
-            bound(x.numel(), flops=2 * sum(ntaps)), lib,
+            bound(x.numel(), flops=2 * sum(ntaps)), atol, lib,
             None if dense is None else
             "cuDNN conv with the dense filter, TF32 off, on an input padded "
             "beforehand (pad not timed)", n_plain=50,
@@ -577,7 +857,7 @@ def main():
         rows[label] = time_row(
             label, lambda: fs.fused_separable_minmax(*args),
             lambda: fs.fused_separable_minmax_ref(*args), x,
-            bound(x.numel(), minmax_ops=nd * (size - 1)), (lib, 0.0),
+            bound(x.numel(), minmax_ops=nd * (size - 1)), 0, (lib, 0.0),
             f"torch max_pool{nd}d stride 1 on an input padded beforehand "
             "(pad not timed)" + (", on -x with both negations timed"
                                  if is_min else ""),
@@ -598,6 +878,7 @@ def main():
             label, lambda: fd.fused_dense_correlate(*args),
             lambda: fd.fused_dense_correlate_ref(*args), x,
             bound(x.numel(), flops=2 * int(np.count_nonzero(w))),
+            1e-5 * float(np.abs(w).sum()),
             (lambda: conv(xp, wt), 1e-5 * float(np.abs(w).sum())),
             f"cuDNN conv{nd}d, TF32 off, on an input padded beforehand "
             "(pad not timed)", kernel="fused_dense_f32_kernel")
@@ -619,7 +900,7 @@ def main():
         rows[label] = time_row(
             label, lambda: fr.fused_rank_filter(*args),
             lambda: fr.fused_rank_filter_ref(*args), x,
-            bound(x.numel(), minmax_ops=2 * least_ces(fp, rank)),
+            bound(x.numel(), minmax_ops=2 * least_ces(fp, rank)), 0,
             (lambda: torch.kthvalue(win, rank + 1, dim=-1).values, 0.0),
             "torch.kthvalue over the Tensor.unfold windows, gathered "
             "beforehand (not timed)", n_plain=10, kernel="fused_rank_kernel")
@@ -632,25 +913,137 @@ def main():
     rank_row("rank_filter 4096^2 i32 cross rank 2", imgc_i, cross, 2)
     torch.cuda.empty_cache()
 
+    # the spline gather; the yardstick is grid_sample on a sampling grid
+    # built beforehand (not timed), align_corners=True: nearest, bilinear
+    # or bicubic for orders 0, 1, 3 (its bicubic is Keys' cubic
+    # convolution, not the B-spline: timed only)
+    grid_modes = {0: "nearest", 1: "bilinear", 3: "bicubic"}
+
+    def sample_grid(coords, shape):
+        """grid_sample's normalized grid, last axis first."""
+        return torch.stack([2 * c / (n - 1) - 1 for c, n in
+                            zip(reversed(coords), reversed(shape))],
+                           -1)[None].float()
+
+    def grid_sample(x, grid, order, padding):
+        return F.grid_sample(x[None, None], grid, mode=grid_modes[order],
+                             padding_mode=padding, align_corners=True)
+
+    def gather_atol(x, order):
+        """The gather against its plain version, as in the kernel-vs-plain
+        phase: order 0 exactly, else 1e-5 of max|x| (float32 data)."""
+        return 0 if order == 0 else 1e-5 * float(x.abs().max())
+
+    def affine_row(label, x, m, off, out_shape, orders, mode, lib_check):
+        nd = x.ndim
+        args = (x, m, off, out_shape, orders, mode, 0.0)
+        lib = lib_call = None
+        order = max(orders)
+        if order in grid_modes and mode == "nearest":
+            coords = sg.affine_coords(m, off, out_shape, torch.float64,
+                                      x.device)
+            grid = sample_grid(coords, x.shape)
+            del coords
+            lib = (lambda: grid_sample(x, grid, order, "border"),
+                   1e-3 if lib_check else None)
+            lib_call = (f"torch grid_sample {grid_modes[order]}, border, "
+                        "align_corners=True, grid built beforehand (not "
+                        "timed)" + ("" if lib_check else
+                                    "; another function, timed only"))
+        rows[label] = time_row(
+            label, lambda: sg.spline_affine(*args),
+            lambda: sg.spline_affine_ref(*args), x,
+            gather_bound(x.numel(), int(np.prod(out_shape)), orders,
+                         coord_ops=nd * (2 * nd + 1)),
+            gather_atol(x, order), lib, lib_call, n_plain=3,
+            kernel="spline_gather_kernel")
+
+    def map_row(label, x, coords, order, mode):
+        args = (x, coords, order, mode, 0.0)
+        grid = sample_grid(list(coords.unbind(0)), x.shape)
+        rows[label] = time_row(
+            label, lambda: sg.spline_map(*args),
+            lambda: sg.spline_map_ref(*args), x,
+            gather_bound(x.numel(), coords[0].numel(), [order] * x.ndim,
+                         coord_bytes=coords.numel() * coords.element_size(),
+                         weights_f64=coords.dtype == torch.float64),
+            gather_atol(x, order),
+            (lambda: grid_sample(x, grid, order, "reflection"), None),
+            f"torch grid_sample {grid_modes[order]}, reflection, "
+            "align_corners=True, grid built beforehand (not timed); "
+            "another boundary rule and, for order 3, another cubic: "
+            "timed only", n_plain=3, kernel="spline_gather_kernel")
+
+    zeros2 = np.zeros(2)
+    for order in (0, 1, 3):
+        affine_row(f"affine_transform 4096^2 order {order} nearest", imgc,
+                   mat.astype(f64), zeros2, (4096, 4096), [order] * 2,
+                   "nearest", order == 1)
+    affine_row("affine_transform 4096^2 rot40 order 1 nearest", imgc,
+               rot40.astype(f64), zeros2, (4096, 4096), [1, 1], "nearest",
+               True)
+    # rotate(256^3, 17, axes=(1, 2)) as the public call builds it
+    s17, c17 = np.sin(np.deg2rad(17.0)), np.cos(np.deg2rad(17.0))
+    m3 = np.array([[1.0, 0, 0], [0, c17, s17], [0, -s17, c17]])
+    ctr = np.full(2, 127.5)
+    off3 = np.concatenate([[0.0], ctr - m3[1:, 1:] @ ctr])
+    affine_row("rotate 256^3 axes (1, 2) 17 deg order 1 nearest", xc3, m3,
+               off3, (256, 256, 256), [0, 1, 1], "nearest", True)
+    map_row("map_coordinates 2048^2 warp order 1 reflect", xc2, warpc, 1,
+            "reflect")
+    coef2 = iir.spline_filter_fir(xc2, 3, (0, 1), "reflect")
+    map_row("map_coordinates 2048^2 warp order 3 reflect (gather)", coef2,
+            warpc, 3, "reflect")
+    coef5 = iir.spline_filter_fir(imgc, 5, (0, 1), "reflect")
+    affine_row("shift 4096^2 (2.3, -1.7) order 5 reflect (gather)", coef5,
+               np.eye(2), np.array([-2.3, 1.7]), (4096, 4096), [5, 5],
+               "reflect", False)
+    coefz = iir.spline_filter_fir(xc2, 3, (0, 1), "constant")
+    affine_row("zoom 2048^2 x2 order 3 constant (gather)", coefz,
+               np.diag([2047 / 4095] * 2), zeros2, (4096, 4096), [3, 3],
+               "constant", False)
+    del coef2, coef5, coefz
+    # the spline prefilter on the fused separable kernel: one launch of
+    # order 3's 37-tap FIR over both axes, against the recursion
+    taps3 = iir.pole_taps(3)[0]
+    rows["spline_filter 4096^2 order 3 (37 taps)"] = time_row(
+        "spline_filter 4096^2 order 3 (37 taps)",
+        lambda: fs.fused_separable_correlate(
+            imgc, (taps3, taps3), (0, 0), ("mirror",) * 2, 0.0),
+        lambda: iir.spline_filter1d(iir.spline_filter1d(imgc, 3, 0, "mirror"),
+                                    3, 1, "mirror"),
+        imgc, bound(imgc.numel(), flops=2 * 2 * len(taps3)),
+        # as the prefilter phase: 1e-5 of the coefficients' max|c|
+        lambda c: 1e-5 * float(c.abs().max()), None, None,
+        n_plain=2, kernel="fused_separable_f32_kernel")
+    torch.cuda.empty_cache()
+
     print(json.dumps({"card": card, "cases": list(rows.values())}))
+    stencil = "cupyimg_tpu/ops/pallas_stencil.py"
     kernels = [
-        ("fused_separable_correlate", "fused_separable.cu", 1034,
-         "uniform_filter 256^3 size=5"),
-        ("fused_separable_minmax", "fused_separable.cu", 946,
+        ("fused_separable_correlate", "fused_separable.cu",
+         f"{stencil}:1034", "uniform_filter 256^3 size=5"),
+        ("fused_separable_minmax", "fused_separable.cu", f"{stencil}:946",
          "minimum_filter 256^3 size=5"),
-        ("fused_dense_correlate", "fused_dense.cu", 1740,
+        ("fused_dense_correlate", "fused_dense.cu", f"{stencil}:1740",
          "correlate 4096^2 9x9"),
-        ("fused_rank_filter", "fused_rank.cu", 2070,
+        ("fused_rank_filter", "fused_rank.cu", f"{stencil}:2070",
          "median_filter 4096^2 5x5"),
+        ("spline_gather", "spline_gather.cu",
+         "cupyimg_tpu/ops/gtg_interp.py:176, "
+         "cupyimg_tpu/ops/warp_gather.py:111, "
+         "cupyimg_tpu/ops/pallas_interp.py:161, "
+         "cupyimg_tpu/ops/pallas_interp.py:279",
+         "affine_transform 4096^2 order 1 nearest"),
     ]
     line = []
-    for kname, src, site, case in kernels:
+    for kname, src, replaces, case in kernels:
         r = rows[case]
         line.append({
             "name": kname,
             "route": "cuda",
             "source": f"cupyimg_tpu_torch/csrc/{src}",
-            "replaces": f"cupyimg_tpu/ops/pallas_stencil.py:{site}",
+            "replaces": replaces,
             "launches": launches[kname],
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],

@@ -26,7 +26,10 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
-SOURCES = ("fused_separable", "fused_dense", "fused_rank")
+SOURCES = ("fused_separable", "fused_dense", "fused_rank", "spline_gather")
+# flags of one source only: the gather rounds every product and sum on its
+# own, as its plain PyTorch version does (no fused multiply-adds)
+EXTRA_FLAGS = {"spline_gather": ["-fmad=false"]}
 
 
 def _nvcc():
@@ -39,6 +42,7 @@ def _nvcc():
 
 def library_path(name: str) -> Path:
     digest = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
+    digest.update(" ".join(EXTRA_FLAGS.get(name, ())).encode())
     for header in sorted(SRC_DIR.glob("*.cuh")):
         digest.update(header.read_bytes())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
@@ -55,8 +59,8 @@ def build(names=SOURCES):
         if so.exists():
             continue
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               str(SRC_DIR / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, *EXTRA_FLAGS.get(name, ()), "-o",
+               str(tmp), str(SRC_DIR / f"{name}.cu")]
         procs.append((so, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))

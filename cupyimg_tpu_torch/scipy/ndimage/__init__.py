@@ -1,4 +1,5 @@
-"""scipy.ndimage-compatible API on torch tensors: the filters."""
+"""scipy.ndimage-compatible API on torch tensors: the filters and the
+interpolation functions."""
 
 from cupyimg_tpu_torch.scipy.ndimage.filters import (  # noqa: F401
     generic_filter,
@@ -25,4 +26,14 @@ from cupyimg_tpu_torch.scipy.ndimage.filters import (  # noqa: F401
     rank_filter,
     median_filter,
     percentile_filter,
+)
+from cupyimg_tpu_torch.scipy.ndimage.interpolation import (  # noqa: F401
+    spline_filter1d,
+    spline_filter,
+    map_coordinates,
+    affine_transform,
+    shift,
+    zoom,
+    rotate,
+    geometric_transform,
 )
