@@ -17,15 +17,25 @@ Phases, each fatal on failure (a traceback and a non-zero exit):
    spline gather (both entries, orders 0-5, every mode, float32/float64
    data and coordinates, 2-D and 3-D, knife-edge and far-out
    coordinates, NaN and complex data: 1e-5 / 1e-12 of max|x|, order 0
-   exactly) and the spline prefilter's FIR on the fused separable kernel
-   against the recursion (orders 2-5, 1e-5 of the coefficients' range);
+   exactly), the spline prefilter's FIR on the fused separable kernel
+   against the recursion (orders 2-5, 1e-5 of the coefficients' range),
+   and the fused separable kernel's two-stage (opening, closing) and
+   pair (gradient, laplace) modes, exactly, NaN included, under every
+   mode, sizes 1-9 mixed across axes, even sizes with origins under wrap,
+   and the widest windows the planner fuses;
 4. the main path: eleven public ``scipy.ndimage`` filter calls and ten
    interpolation calls at full size (256^3 and 2048^2/4096^2 float32, a
    4096^2 int32 image), each checked to launch its kernels exactly as
    often as planned (one spline gather per interpolation, plus one fused
    separable launch per pole where it prefilters) and to agree with
    scipy.ndimage on the host (float64 for the correlations and
-   interpolations, exactly for min/max/rank and order 0);
+   interpolations, exactly for min/max/rank and order 0); then the
+   morphology path, its counts set to 0 before it: seven grey calls
+   (one two-stage or pair launch each, or two min/max launches outside
+   the gate; exact against scipy, the laplace against its contract) and
+   three plain-torch calls (binary erosion, hole filling, the EDT with
+   indices; no launch; exact, the EDT within 1e-6 relative), with the
+   binary fixpoint's step count and the plain calls' device times;
 5. times from CUDA events (median over up to 100 launches after a
    warm-up), printed as one ``{"cases": ...}`` and one ``{"kernels":
    ...}`` JSON line, with each kernel's bound and a PyTorch yardstick.
@@ -266,6 +276,81 @@ def minmax_vs_plain(fs, torch):
               f"{str(shape):17s} sizes {str(sizes):13s} equal {ok} "
               f"nan {int(ref.isnan().sum())}")
         check(ok, f"minmax {name}: kernel differs from its plain version")
+
+
+def _dilation_origins(sizes, origins):
+    """grey_dilation's origins for the max stage: negated, shifted by one
+    for an even size."""
+    return tuple(-o - 1 if s % 2 == 0 else -o for s, o in zip(sizes, origins))
+
+
+def morph_vs_plain(fs, torch):
+    """B1's two-stage (opening, closing) and pair (gradient, laplace)
+    kernels against their plain versions: exact, NaN included, under
+    every mode (nearest and constant too: the kernel computes the
+    extend-once contract whatever the morphology gate says)."""
+    rng = np.random.RandomState(9)
+    sizes3 = [(3, 5, 9), (9, 1, 3), (5, 3, 1), (1, 9, 5)]
+    sizes2 = [(5, 9), (9, 3), (1, 5), (3, 1)]
+    kinds = ("opening", "closing", "grad", "laplace")
+    # (name, shape, sizes, origins, modes, cval, kind)
+    cases = []
+    for i, m in enumerate(MODES):
+        for j, kind in enumerate(kinds):
+            cases.append((f"3d-{m}", (37, 45, 70), sizes3[(i + j) % 4],
+                          (0, 0, 0), (m,) * 3, 0.5, kind))
+            cases.append((f"2d-{m}", (300, 517), sizes2[(i + j) % 4], (0, 0),
+                          (m, m), -0.25, kind))
+    for kind in kinds:
+        cases += [
+            ("3d-wrap-even-origins", (21, 50, 67), (4, 6, 2), (1, -2, 0),
+             ("wrap", "grid-wrap", "wrap"), 0.0, kind),
+            ("2d-wrap-even-origins", (64, 100), (4, 6), (1, -2),
+             ("grid-wrap", "wrap"), 0.0, kind),
+            ("3d-mixed-modes", (21, 50, 67), (3, 9, 5), (0, 0, 0),
+             ("constant", "reflect", "nearest"), 1.5, kind),
+            ("2d-short-axis", (5, 700), (9, 9), (0, 0),
+             ("mirror", "reflect"), 0.0, kind),
+            ("3d-n1", (1, 3, 40), (5, 5, 5), (0, 0, 0),
+             ("mirror", "reflect", "wrap"), 0.0, kind),
+            ("3d-nan", (30, 40, 50), (3, 1, 3), (0, 0, 0),
+             ("reflect",) * 3, 0.0, kind),
+            ("2d-nan", (200, 317), (3, 3), (0, 0), ("constant",) * 2, 0.5,
+             kind),
+        ]
+    # the widest windows the two-stage planner fuses, and 64 per axis in
+    # the pair mode
+    cases += [("2d-50x50", (200, 300), (50, 50), (0, 0), ("reflect",) * 2,
+               0.0, k) for k in ("opening", "closing")]
+    cases += [("3d-21^3", (30, 40, 70), (21, 21, 21), (0, 0, 0),
+               ("mirror",) * 3, 0.0, k) for k in ("opening", "closing")]
+    cases += [("3d-64^3", (16, 24, 40), (64, 64, 64), (0, 0, 0),
+               ("constant", "reflect", "wrap"), 0.5, k)
+              for k in ("grad", "laplace")]
+    for name, shape, sizes, origins, cmodes, cval, kind in cases:
+        xh = rng.randn(*shape).astype(np.float32)
+        if "nan" in name:
+            xh[rng.rand(*shape) < 0.02] = np.nan
+        x = torch.from_numpy(xh).cuda()
+        if kind in ("opening", "closing"):
+            opening = kind == "opening"
+            o_dil = _dilation_origins(sizes, origins)
+            o1, o2 = (origins, o_dil) if opening else (o_dil, origins)
+            args = (x, sizes, o1, o2, cmodes, cval, opening)
+            got = fs.fused_separable_open_close(*args)
+            ref = fs.fused_separable_open_close_ref(*args)
+        else:
+            args = (x, sizes, origins, cmodes, cval, kind)
+            got = fs.fused_separable_morph_pair(*args)
+            ref = fs.fused_separable_morph_pair_ref(*args)
+        torch.cuda.synchronize()
+        ok = same(got, ref)
+        print(f"kernel-vs-plain morph {kind:8s} {name:22s} {str(shape):15s} "
+              f"sizes {str(sizes):12s} equal {ok} "
+              f"nan {int(ref.isnan().sum())}")
+        check(ok, f"morph {kind} {name}: kernel differs from its plain "
+                  "version")
+    print(f"kernel-vs-plain morph: {len(cases)} cases passed")
 
 
 def _sparse(shape, nnz, rng):
@@ -573,6 +658,234 @@ def time_row(label, launch, plain, x, bound_ms_by, atol, library=None,
     return row
 
 
+def _blobs(shape, size, level, rng):
+    """Boolean blobs with holes: a box-smoothed random field above
+    ``level`` (made on the host from ``rng``)."""
+    import scipy.ndimage as sndi
+
+    field = sndi.uniform_filter(rng.random(shape, dtype=np.float32), size)
+    return field > level
+
+
+def morphology_path(fs, ndi, sndi, torch, x3, xc3, img, imgc, shape2):
+    """Phase 4, morphology: public calls at full size, each held against
+    scipy.ndimage on the host (grey and binary exactly, the laplace
+    exactly against its contract built from scipy's dilation and erosion,
+    the EDT within 1e-6 relative) and each call's launches against its
+    plan.  The counts are set to 0 just before this path and read just
+    after.  Returns the path's launches and the plain-torch calls' times
+    (binary ops and the EDT, which launch no kernel)."""
+    import cupyimg_tpu_torch.skimage.morphology as skm
+    from cupyimg_tpu_torch.scipy.ndimage import morphology as morph
+
+    rng = np.random.default_rng(1)
+    b3 = _blobs(x3.shape, 5, 0.5, rng)
+    b2 = _blobs(shape2, 15, 0.5, rng)
+    b3c = torch.from_numpy(b3).cuda()
+    b2c = torch.from_numpy(b2).cuda()
+    f64 = np.float64
+
+    def laplace_contract(x, **kw):
+        """cupyimg_tpu's laplace, (dilation + erosion) - 2x in float32,
+        from scipy's own dilation and erosion."""
+        d = sndi.grey_dilation(x, **kw)
+        e = sndi.grey_erosion(x, **kw)
+        return (d + e) - np.float32(2) * x
+
+    def edt_check(y):
+        d, i = y
+        dr, ir = sndi.distance_transform_edt(b2, return_indices=True)
+        check(d.dtype == torch.float32 and i.dtype == torch.int32,
+              f"edt dtypes {d.dtype} {i.dtype}")
+        d = d.cpu().numpy().astype(f64)
+        err = float(np.abs(d - dr).max())
+        check(bool((np.abs(d - dr) <= 1e-6 * dr).all()),
+              f"edt disagrees with scipy ({err:.3e})")
+        check(np.array_equal(i.cpu().numpy(), ir),
+              "edt indices differ from scipy's")
+        return err, "rtol 1e-6, indices exact"
+
+    oc = {"fused_separable_open_close": 1}
+    counters = {
+        "fused_separable_open_close": fs.fused_separable_open_close,
+        "fused_separable_morph_pair": fs.fused_separable_morph_pair,
+        "fused_separable_minmax": fs.fused_separable_minmax,
+    }
+    # (label, {kernel: launches}, call, reference: an array (exact) or a
+    # function of the result giving (err, tolerance text))
+    path = [
+        ("grey_opening(256^3 f32, size=5)", oc,
+         lambda: ndi.grey_opening(xc3, size=5),
+         lambda: sndi.grey_opening(x3, size=5)),
+        ("grey_closing(4096^2 f32, size=7, wrap)", oc,
+         lambda: ndi.grey_closing(imgc, size=7, mode="wrap"),
+         lambda: sndi.grey_closing(img, size=7, mode="wrap")),
+        ("grey_opening(4096^2 f32, size=5, constant)",
+         {"fused_separable_minmax": 2},
+         lambda: ndi.grey_opening(imgc, size=5, mode="constant"),
+         lambda: sndi.grey_opening(img, size=5, mode="constant")),
+        ("morphological_gradient(256^3 f32, size=3)",
+         {"fused_separable_morph_pair": 1},
+         lambda: ndi.morphological_gradient(xc3, size=3),
+         lambda: sndi.morphological_gradient(x3, size=3)),
+        ("morphological_laplace(4096^2 f32, size=5, nearest)",
+         {"fused_separable_morph_pair": 1},
+         lambda: ndi.morphological_laplace(imgc, size=5, mode="nearest"),
+         lambda: laplace_contract(img, size=5, mode="nearest")),
+        ("white_tophat(4096^2 f32, size=9)", oc,
+         lambda: ndi.white_tophat(imgc, size=9),
+         lambda: sndi.white_tophat(img, size=9)),
+        ("skimage opening(4096^2 f32, square(5))", oc,
+         lambda: skm.opening(imgc, skm.square(5)),
+         lambda: sndi.grey_opening(img, footprint=np.ones((5, 5)))),
+        ("binary_erosion(256^3 bool blobs, iterations=3)", {},
+         lambda: ndi.binary_erosion(b3c, iterations=3),
+         lambda: sndi.binary_erosion(b3, iterations=3)),
+        ("binary_fill_holes(2048^2 bool blobs)", {},
+         lambda: ndi.binary_fill_holes(b2c),
+         lambda: sndi.binary_fill_holes(b2)),
+        ("distance_transform_edt(2048^2 bool blobs, indices)", {},
+         lambda: ndi.distance_transform_edt(b2c, return_indices=True),
+         edt_check),
+    ]
+    for c in counters.values():
+        c.launches = 0
+    morph._iterate_binary_op.steps = 0
+    outputs = []
+    for label, _, run, _ in path:
+        before = {k: c.launches for k, c in counters.items()}
+        steps = morph._iterate_binary_op.steps
+        y = run()
+        delta = {k: c.launches - before[k] for k, c in counters.items()}
+        outputs.append((y, delta, morph._iterate_binary_op.steps - steps))
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    for (label, plan, _, reference), (y, delta, steps) in zip(path, outputs):
+        want = {k: plan.get(k, 0) for k in counters}
+        check(delta == want, f"{label} launched {delta}, not as planned: "
+                             f"{plan}")
+        if isinstance(y, tuple):
+            err, tol = reference(y)
+        else:
+            exp = reference()
+            want_dtype = torch.bool if exp.dtype == np.bool_ else torch.float32
+            check(tuple(y.shape) == exp.shape and y.dtype == want_dtype,
+                  f"{label}: dtype/shape {y.dtype} {tuple(y.shape)}")
+            got = y.cpu().numpy()
+            err = float(np.abs(got.astype(f64) - exp.astype(f64)).max())
+            check(np.array_equal(got, exp),
+                  f"{label}: differs from scipy.ndimage ({err:.3e})")
+            tol = "exact"
+        planned = " ".join(f"{k} x{n}" for k, n in plan.items()) or (
+            "no kernel (plain torch)")
+        print(f"main path {label:52s} {planned:34s} "
+              f"max_abs_err vs scipy {err:.3e} ({tol})"
+              + (f"; binary steps {steps}" if steps else ""))
+    # the laplace's contract against scipy's own laplace, which subtracts
+    # the input twice: one float32 ulp of values below 2 at most
+    lap = outputs[4][0].cpu().numpy()
+    err = float(np.abs(lap - sndi.morphological_laplace(
+        img, size=5, mode="nearest")).max())
+    check(err <= 2.4e-7, f"laplace vs scipy's: {err:.3e}")
+    print(f"main path laplace vs scipy.ndimage.morphological_laplace: "
+          f"max_abs_err {err:.3e} (atol 2.4e-07, one ulp)")
+    print(f"morphology path launches: {json.dumps(launches)}")
+    check(launches["fused_separable_open_close"] >= 1
+          and launches["fused_separable_morph_pair"] >= 1,
+          "a B1-morph kernel was not launched on the morphology path")
+    del outputs
+
+    # the plain-torch calls' device time (no kernel of the port)
+    plain_rows = []
+    for label, call, n in (
+        (path[7][0], path[7][2], 10),
+        (path[8][0], path[8][2], 5),
+        (path[9][0], path[9][2], 5),
+    ):
+        morph._iterate_binary_op.steps = 0
+        ms = median_ms(call, n=n, n_warmup=1)
+        runs = n + 1
+        plain_rows.append({"case": label, "ms": ms,
+                           "binary_steps": morph._iterate_binary_op.steps
+                           // runs})
+        print(f"plain torch {label:52s} {ms:10.3f} ms "
+              f"(binary steps per call {plain_rows[-1]['binary_steps']})")
+    return launches, plain_rows
+
+
+def morph_rows(fs, boundary, torch, rows, xc3, imgc):
+    """Phase 5, B1-morph: the two-stage and pair kernels at the main
+    path's shapes, each against its plain version (exact), beside the two
+    B1 min/max launches the two-call route takes (``two_launch_ms``) and
+    the max_pool composite (the input padded beforehand, not timed)."""
+    F = torch.nn.functional
+
+    def pool(x, size, is_min):
+        """Stride-1 box max (or min, as -max(-x)) by max_pool: 'valid'
+        windows, one size-``size`` window per axis."""
+        nd = x.ndim
+        op = F.max_pool3d if nd == 3 else F.max_pool2d
+        y = x[None, None]
+        out = -op(-y, size, stride=1) if is_min else op(y, size, stride=1)
+        return out[0, 0]
+
+    def open_close_row(label, x, size, mode, opening):
+        nd = x.ndim
+        sizes, zero = (size,) * nd, (0,) * nd
+        args = (x, sizes, zero, zero, (mode,) * nd, 0.0, opening)
+        h = size // 2
+        xp = boundary.pad(x, [(2 * h, 2 * h)] * nd, mode)
+        lib = (lambda: pool(pool(xp, size, opening), size, not opening), 0.0)
+        two = (lambda: fs.fused_separable_minmax(
+            fs.fused_separable_minmax(x, sizes, zero, (mode,) * nd, 0.0,
+                                      opening),
+            sizes, zero, (mode,) * nd, 0.0, not opening))
+        row = time_row(
+            label, lambda: fs.fused_separable_open_close(*args),
+            lambda: fs.fused_separable_open_close_ref(*args), x,
+            bound(x.numel(), minmax_ops=2 * nd * (size - 1)), 0, lib,
+            f"composite: two torch max_pool{nd}d stride 1 (min as "
+            "-max_pool(-x), negations timed) on an input padded "
+            "beforehand by both windows (pad not timed); no single "
+            "PyTorch call computes an opening",
+            n_plain=10, kernel="open_close_f32_kernel")
+        row["two_launch_ms"] = median_ms(two)
+        rows[label] = row
+
+    def pair_row(label, x, size, mode, combine):
+        nd = x.ndim
+        args = (x, (size,) * nd, (0,) * nd, (mode,) * nd, 0.0, combine)
+        h = size // 2
+        xp = boundary.pad(x, [(h, h)] * nd, mode)
+
+        def lib():
+            mx, mn = pool(xp, size, False), pool(xp, size, True)
+            return mx - mn if combine == "grad" else mx + mn - 2.0 * x
+
+        rows[label] = time_row(
+            label, lambda: fs.fused_separable_morph_pair(*args),
+            lambda: fs.fused_separable_morph_pair_ref(*args), x,
+            bound(x.numel(), minmax_ops=2 * nd * (size - 1)
+                  + (1 if combine == "grad" else 3)), 0, (lib, 0.0),
+            f"composite: torch max_pool{nd}d stride 1 for the max and "
+            "-max_pool(-x) for the min, then the combine, on an input "
+            "padded beforehand (pad not timed)",
+            n_plain=10, kernel="morph_pair_f32_kernel")
+
+    open_close_row("grey_opening 256^3 size=5 (two-stage)", xc3, 5,
+                   "reflect", True)
+    open_close_row("grey_closing 4096^2 size=7 wrap (two-stage)", imgc, 7,
+                   "wrap", False)
+    open_close_row("grey_opening 4096^2 size=9 (two-stage, white_tophat)",
+                   imgc, 9, "reflect", True)
+    open_close_row("grey_opening 4096^2 size=5 (two-stage, skimage square)",
+                   imgc, 5, "reflect", True)
+    pair_row("morphological_gradient 256^3 size=3 (pair)", xc3, 3, "reflect",
+             "grad")
+    pair_row("morphological_laplace 4096^2 size=5 nearest (pair)", imgc, 5,
+             "nearest", "laplace")
+
+
 def main():
     import torch
 
@@ -619,6 +932,7 @@ def main():
     rank_vs_plain(fr, torch)
     spline_gather_vs_plain(sg, torch)
     prefilter_vs_plain(iir, torch)
+    morph_vs_plain(fs, torch)
     print(f"kernel-vs-plain: {time.perf_counter() - t0:.1f} s")
 
     # -- phase 4: the main path through the public API ----------------------
@@ -800,6 +1114,8 @@ def main():
     del outputs
     for kernel in counters:
         check(launches[kernel] >= 1, f"{kernel} not launched on the main path")
+    morph_launches, plain_rows = morphology_path(
+        fs, ndi, sndi, torch, x3, xc3, img, imgc, x2.shape)
 
     # -- phase 5: times -----------------------------------------------------
     F = torch.nn.functional
@@ -1018,7 +1334,11 @@ def main():
         n_plain=2, kernel="fused_separable_f32_kernel")
     torch.cuda.empty_cache()
 
-    print(json.dumps({"card": card, "cases": list(rows.values())}))
+    morph_rows(fs, boundary, torch, rows, xc3, imgc)
+    torch.cuda.empty_cache()
+
+    print(json.dumps({"card": card, "cases": list(rows.values()),
+                      "plain_torch": plain_rows}))
     stencil = "cupyimg_tpu/ops/pallas_stencil.py"
     kernels = [
         ("fused_separable_correlate", "fused_separable.cu",
@@ -1036,6 +1356,14 @@ def main():
          "cupyimg_tpu/ops/pallas_interp.py:279",
          "affine_transform 4096^2 order 1 nearest"),
     ]
+    kernels.append(
+        ("fused_separable_morph", "fused_separable.cu",
+         f"{stencil}:1388, {stencil}:1451 (specs2 / pair_combine of "
+         f"_fused_separable, {stencil}:1034)",
+         "grey_opening 256^3 size=5 (two-stage)"))
+    launches["fused_separable_morph"] = (
+        morph_launches["fused_separable_open_close"]
+        + morph_launches["fused_separable_morph_pair"])
     line = []
     for kname, src, replaces, case in kernels:
         r = rows[case]
