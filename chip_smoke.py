@@ -22,7 +22,11 @@ Phases, each fatal on failure (a traceback and a non-zero exit):
    and the fused separable kernel's two-stage (opening, closing) and
    pair (gradient, laplace) modes, exactly, NaN included, under every
    mode, sizes 1-9 mixed across axes, even sizes with origins under wrap,
-   and the widest windows the planner fuses;
+   and the widest windows the planner fuses; the FFT kernel's rows and
+   strided entries (forward, real input, inverse with a broadcast
+   product, scale and real output, a round trip) at the smallest and
+   largest sizes its gate admits and at 384, 1215, 2000 and 4320
+   (5e-5 / 1e-4 of max|X|, the JAX suite's tolerances);
 4. the main path: eleven public ``scipy.ndimage`` filter calls and ten
    interpolation calls at full size (256^3 and 2048^2/4096^2 float32, a
    4096^2 int32 image), each checked to launch its kernels exactly as
@@ -35,10 +39,20 @@ Phases, each fatal on failure (a traceback and a non-zero exit):
    the gate; exact against scipy, the laplace against its contract) and
    three plain-torch calls (binary erosion, hole filling, the EDT with
    indices; no launch; exact, the EDT within 1e-6 relative), with the
-   binary fixpoint's step count and the plain calls' device times;
+   binary fixpoint's step count and the plain calls' device times; then
+   the signal path, its counts set to 0 before it: ``scipy.signal``'s
+   fftconvolve, oaconvolve, convolve and correlate (method "auto") on a
+   4096^2 float32 image with a 31x31 kernel and on 2^22 samples with
+   257 taps, the Fourier filters on a 4096^2 spectrum, hilbert and
+   resample on 2^20 samples (each call's launches of the FFT kernel's
+   rows and strided entries against its route, or none where it takes
+   torch.fft; values vs scipy within 5e-4 of max|ref|);
 5. times from CUDA events (median over up to 100 launches after a
    warm-up), printed as one ``{"cases": ...}`` and one ``{"kernels":
-   ...}`` JSON line, with each kernel's bound and a PyTorch yardstick.
+   ...}`` JSON line, with each kernel's bound and a PyTorch yardstick
+   (cuFFT for the FFT kernel's passes), the end-to-end fftconvolve
+   against torch.fft, and the direct and fft times of the main-path
+   convolutions.
 
 The last line is ``{"ok": true, "device": {...}}``.  Exits non-zero,
 printing no result, when CUDA is not available.
@@ -886,6 +900,327 @@ def morph_rows(fs, boundary, torch, rows, xc3, imgc):
              "nearest", "laplace")
 
 
+def fft_vs_plain(ff, torch):
+    """Phase 3, B4/B5: both entries of the FFT kernel against
+    ``fused_fft_ref`` on the card, at n in {270 and 14400 (the smallest
+    and largest sizes the gate admits), 384, 1215, 2000, 4320}: forward
+    (complex and real input), the inverse with a product broadcast over
+    the leading axis, a scale and a real output, and a kernel round trip
+    (forward, then inverse with 1/n).  Tolerances are the JAX suite's:
+    5e-5 * max|X| for a forward transform, 1e-4 * max|X| for an inverse
+    and a round trip."""
+    rng = np.random.default_rng(5)
+    sizes = [n for n in range(257, 20000) if ff.supports(n)]
+    ns = sorted({sizes[0], 384, 1215, 2000, 4320, sizes[-1]})
+
+    def c64(shape):
+        return torch.complex(
+            *[torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+              .cuda() for _ in range(2)])
+
+    count, worst = 0, 0.0
+    for n in ns:
+        for entry, shape, launch in (("rows", (9, n), ff.fft_rows),
+                                     ("strided", (3, n, 7), ff.fft_strided)):
+            x = c64(shape)
+            cases = [
+                ("forward", x, {}, 5e-5),
+                ("forward, real input", x.real.contiguous(), {}, 5e-5),
+                ("inverse", x, dict(inverse=True), 1e-4),
+                ("inverse, broadcast product, scale, real output", x,
+                 dict(inverse=True, real_out=True, mul=c64(shape[1:]),
+                      scale=1.0 / n), 1e-4),
+            ]
+            for label, inp, kw, rel in cases:
+                got = launch(inp, **kw)
+                ref = ff.fused_fft_ref(inp, entry, **kw)
+                torch.cuda.synchronize()
+                check(got.shape == ref.shape and got.dtype == ref.dtype
+                      and bool(torch.isfinite(torch.view_as_real(got)
+                                              if got.is_complex() else got)
+                               .all()),
+                      f"fused_fft {entry} n={n} {label}: bad output")
+                err = float((got - ref).abs().max())
+                tol = rel * float(ref.abs().max())
+                check(err <= tol, f"fused_fft {entry} n={n} {label}: "
+                                  f"{err:.3e} > {tol:.3e}")
+                worst = max(worst, err / tol)
+                count += 1
+            spec = launch(x)
+            back = launch(spec, inverse=True, scale=1.0 / n)
+            torch.cuda.synchronize()
+            err = float((back - x).abs().max())
+            tol = 1e-4 * float(spec.abs().max())
+            check(err <= tol, f"fused_fft {entry} n={n} round trip: "
+                              f"{err:.3e} > {tol:.3e}")
+            worst = max(worst, err / tol)
+            count += 1
+    print(f"fused_fft kernel-vs-plain: {count} cases (n = "
+          f"{', '.join(map(str, ns))}; rows and strided), worst err/tol "
+          f"{worst:.3f}")
+
+
+def signal_path(counters, torch, img, imgc):
+    """Phase 4, signal: the FFT-domain calls of ``bench_suite.py:734-747``
+    at full size, each held against scipy on the host (float64 inputs;
+    5e-4 * max|ref|, the JAX suite's convolution tolerance) and each
+    call's launches against its route: the FFT kernel's two passes per
+    2-D transform (a 31x31 second operand is transformed by a direct DFT
+    product), its rows entry for the 1-D overlap-add blocks, and
+    torch.fft (no launch) where the gate declines the padded size.  The
+    counts are set to 0 just before this path and read just after.
+    Returns the path's launches, its inputs, and the plain-torch calls'
+    times."""
+    import scipy.ndimage as sndi
+    import scipy.signal as ss
+
+    import cupyimg_tpu_torch.scipy.ndimage as ndi
+    import cupyimg_tpu_torch.scipy.signal as sig
+
+    rng = np.random.default_rng(2)
+    k31 = rng.standard_normal((31, 31)).astype(np.float32)
+    x1 = rng.standard_normal(1 << 22).astype(np.float32)
+    h257 = rng.standard_normal(257).astype(np.float32)
+    xh = rng.standard_normal(1 << 20).astype(np.float32)
+    k31c, x1c, h257c, xhc = (torch.from_numpy(v).cuda()
+                             for v in (k31, x1, h257, xh))
+    spec = torch.fft.rfft2(imgc)  # (4096, 2049) complex64
+    spec_np = spec.cpu().numpy()
+    f64 = np.float64
+    refs = {}
+
+    def ref(key, fn):
+        def get():
+            if key not in refs:
+                refs[key] = fn()
+            return refs[key]
+        return get
+
+    conv2 = ref("conv2", lambda: ss.fftconvolve(
+        img.astype(f64), k31.astype(f64), "same"))
+    # correlation = convolution with the reversed kernel (odd sizes: the
+    # same centring)
+    corr2 = ref("corr2", lambda: ss.fftconvolve(
+        img.astype(f64), k31[::-1, ::-1].astype(f64), "same"))
+    conv1 = ref("conv1", lambda: ss.oaconvolve(
+        x1.astype(f64), h257.astype(f64), "same"))
+    corr1 = ref("corr1", lambda: ss.oaconvolve(
+        x1.astype(f64), h257[::-1].astype(f64), "same"))
+    two_d = {"fft_rows": 2, "fft_strided": 2}
+    for a, b in ((imgc, k31c), (x1c, h257c)):
+        check(sig.choose_conv_method(a, b, "same") == "fft",
+              "choose_conv_method: fft expected on the main path")
+    # (label, {kernel: launches}, route, call, reference)
+    path = [
+        ("fftconvolve(4096^2 f32, 31x31, same)", two_d, "fused_fft",
+         lambda: sig.fftconvolve(imgc, k31c, "same"), conv2),
+        ("oaconvolve(4096^2 f32, 31x31, same)", {}, "torch.fft (108-sample "
+         "blocks, 4126 columns: outside the gate)",
+         lambda: sig.oaconvolve(imgc, k31c, "same"), conv2),
+        ("oaconvolve(2^22 f32, 257 taps, same)", {"fft_rows": 3},
+         "fused_fft (1215-sample blocks)",
+         lambda: sig.oaconvolve(x1c, h257c, "same"), conv1),
+        ("convolve(4096^2 f32, 31x31, same, auto)", two_d, "fused_fft",
+         lambda: sig.convolve(imgc, k31c, "same"), conv2),
+        ("correlate(4096^2 f32, 31x31, same, auto)", two_d, "fused_fft",
+         lambda: sig.correlate(imgc, k31c, "same"), corr2),
+        ("convolve(2^22 f32, 257 taps, same, auto)", {}, "torch.fft "
+         "(n = 4,194,560: outside the gate)",
+         lambda: sig.convolve(x1c, h257c, "same"), conv1),
+        ("correlate(2^22 f32, 257 taps, same, auto)", {}, "torch.fft "
+         "(n = 4,194,560: outside the gate)",
+         lambda: sig.correlate(x1c, h257c, "same"), corr1),
+        ("fourier_gaussian(rfft2 4096^2 c64, 3)", {}, "plain torch",
+         lambda: ndi.fourier_gaussian(spec, 3.0, n=4096),
+         lambda: sndi.fourier_gaussian(spec_np, 3.0, n=4096)),
+        ("fourier_ellipsoid(rfft2 4096^2 c64, 9)", {}, "plain torch",
+         lambda: ndi.fourier_ellipsoid(spec, 9.0, n=4096),
+         lambda: sndi.fourier_ellipsoid(spec_np, 9.0, n=4096)),
+        ("hilbert(2^20 f32)", {}, "plain torch (torch.fft)",
+         lambda: sig.hilbert(xhc), lambda: ss.hilbert(xh.astype(f64))),
+        ("resample(2^20 f32, 699050)", {}, "plain torch (torch.fft)",
+         lambda: sig.resample(xhc, 699050),
+         lambda: ss.resample(xh.astype(f64), 699050)),
+    ]
+    for c in counters.values():
+        c.launches = 0
+    outputs = []
+    for label, _, _, run, _ in path:
+        before = {k: c.launches for k, c in counters.items()}
+        y = run()
+        delta = {k: c.launches - before[k] for k, c in counters.items()}
+        outputs.append((y, delta))
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    for (label, plan, route, _, reference), (y, delta) in zip(path, outputs):
+        want = {k: plan.get(k, 0) for k in counters}
+        check(delta == want, f"{label} launched {delta}, not as planned: "
+                             f"{plan}")
+        exp = reference()
+        want_dtype = torch.complex64 if np.iscomplexobj(exp) else (
+            torch.float32)
+        check(tuple(y.shape) == exp.shape and y.dtype == want_dtype,
+              f"{label}: dtype/shape {y.dtype} {tuple(y.shape)}")
+        got = y.cpu().numpy()
+        check(np.isfinite(got).all(), f"{label}: non-finite output")
+        err = float(np.abs(got - exp).max())
+        tol = 5e-4 * float(np.abs(exp).max())
+        check(err <= tol, f"{label}: disagrees with scipy ({err:.3e} > "
+                          f"{tol:.3e})")
+        planned = " ".join(f"{k} x{n}" for k, n in plan.items()) or route
+        print(f"signal path {label:44s} {planned:46s} "
+              f"max_abs_err vs scipy {err:.3e} (atol {tol:.1e})")
+    print(f"signal path launches: {json.dumps(launches)}")
+    for kernel in ("fft_rows", "fft_strided"):
+        check(launches[kernel] >= 1,
+              f"fused_fft {kernel} not launched on the signal path")
+    del outputs
+    plain_rows = []
+    for i in (1, 5, 7, 8, 9, 10):
+        label, call = path[i][0], path[i][3]
+        ms = median_ms(call, n=10, n_warmup=2)
+        plain_rows.append({"case": label, "route": path[i][2], "ms": ms})
+        print(f"signal path timed {label:44s} {ms:10.3f} ms ({path[i][2]})")
+    return launches, dict(k31c=k31c, x1c=x1c, h257c=h257c), plain_rows
+
+
+def fft_bound(numel, n, in_bytes, out_bytes, mul_bytes=0):
+    """(bound_ms, bound_by) of one FFT pass over ``numel`` points along
+    an axis of ``n``: one read of each operand and one write at
+    PEAK_BYTES, against 5 * numel * log2(n) flops at PEAK_FP32 (a count
+    of the transform's work, whatever the algorithm)."""
+    t_bytes = numel * (in_bytes + out_bytes + mul_bytes) / PEAK_BYTES
+    t_ops = 5.0 * numel * np.log2(n) / PEAK_FP32
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else
+                                       "operations")
+
+
+def fft_rows_phase5(ff, torch, rows, imgc, inputs):
+    """Phase 5, B4/B5: each pass of the main path's transforms at its
+    shape (fftconvolve 4096^2 31x31: fshape 4320^2; oaconvolve 2^22 with
+    257 taps: 4374 blocks of 1215), held against its plain version,
+    with cuFFT (torch.fft) along the same axis of the same tensor as the
+    yardstick (a product-fused pass against the multiply plus the
+    transform, labelled composite); then the end-to-end fftconvolve
+    against torch.fft.rfft2 -> product -> irfft2 at the same fshape, and
+    the direct and fft times of the main-path convolutions.  Returns the
+    labels of the pass rows and the end-to-end and method rows."""
+    import cupyimg_tpu_torch.scipy.signal as sig
+    from cupyimg_tpu_torch.scipy.signal import signaltools as st
+
+    k31c, x1c, h257c = inputs["k31c"], inputs["x1c"], inputs["h257c"]
+    n0 = 4320
+    xpad = st._pad_to(imgc, (0, 1), (n0, n0))
+    big = xpad.numel()
+    F1 = ff.fft_rows(xpad)
+    F = ff.fft_strided(F1.reshape(1, n0, n0))
+    K = ff.fft2(st._pad_to(k31c, (0, 1), (n0, n0))).reshape(1, n0, n0)
+    G = ff.fft_strided(F, inverse=True, mul=K).reshape(n0, n0)
+    fwd = lambda ref: 5e-5 * float(ref.abs().max())  # noqa: E731
+    inv = lambda ref: 1e-4 * float(ref.abs().max())  # noqa: E731
+    labels = []
+
+    def row(label, launch, plain, x, bound_ms_by, atol, library, lib_call,
+            kernel):
+        rows[label] = time_row(label, launch, plain, x, bound_ms_by, atol,
+                               library, lib_call, n_plain=5, kernel=kernel)
+        labels.append(label)
+
+    s = 1.0 / (n0 * n0)
+    row("fused_fft rows forward, real input 4320^2 (fftconvolve pass 1)",
+        lambda: ff.fft_rows(xpad), lambda: ff.fused_fft_ref(xpad, "rows"),
+        xpad, fft_bound(big, n0, 4, 8), fwd,
+        (lambda: torch.fft.fft(xpad, dim=-1), fwd(F1)),
+        "cuFFT: torch.fft.fft(dim=-1) of the same float32 tensor",
+        "fft_rows_kernel")
+    row("fused_fft strided forward 4320^2 c64 (fftconvolve pass 2)",
+        lambda: ff.fft_strided(F1.reshape(1, n0, n0)),
+        lambda: ff.fused_fft_ref(F1.reshape(1, n0, n0), "strided"), F1,
+        fft_bound(big, n0, 8, 8), fwd,
+        (lambda: torch.fft.fft(F1.reshape(1, n0, n0), dim=1), fwd(F)),
+        "cuFFT: torch.fft.fft(dim=1) of the same complex64 tensor",
+        "fft_strided_kernel")
+    row("fused_fft strided inverse with the spectrum product 4320^2 "
+        "(fftconvolve pass 3)",
+        lambda: ff.fft_strided(F, inverse=True, mul=K),
+        lambda: ff.fused_fft_ref(F, "strided", inverse=True, mul=K), F,
+        fft_bound(big, n0, 8, 8, 8), inv,
+        (lambda: torch.fft.ifft(F * K, dim=1, norm="forward"), inv(G)),
+        "composite: F * K, then cuFFT torch.fft.ifft(dim=1, "
+        "norm='forward')", "fft_strided_kernel")
+    row("fused_fft rows inverse, real output, scaled 4320^2 "
+        "(fftconvolve pass 4)",
+        lambda: ff.fft_rows(G, inverse=True, real_out=True, scale=s),
+        lambda: ff.fused_fft_ref(G, "rows", inverse=True, real_out=True,
+                                 scale=s), G,
+        fft_bound(big, n0, 8, 4), inv,
+        (lambda: torch.fft.ifft(G, dim=-1).real, None),
+        "composite: cuFFT torch.fft.ifft(dim=-1), then the real part "
+        "(timed only: 1/n0 where the pass scales by 1/(n0*n1))",
+        "fft_rows_kernel")
+    del F, G
+    nb, blk = 4374, 1215
+    xb = st._pad_to(st._zero_pad(x1c, [(0, nb * 959 - x1c.numel())])
+                    .reshape(nb, 959), (1,), (blk,))
+    Hb = ff.fft_rows(st._pad_to(h257c.reshape(1, -1), (1,), (blk,)))
+    Xb = ff.fft_rows(xb)
+    row("fused_fft rows forward, real input 4374 x 1215 (oaconvolve "
+        "2^22 blocks)", lambda: ff.fft_rows(xb),
+        lambda: ff.fused_fft_ref(xb, "rows"), xb,
+        fft_bound(xb.numel(), blk, 4, 8), fwd,
+        (lambda: torch.fft.fft(xb, dim=-1), fwd(Xb)),
+        "cuFFT: torch.fft.fft(dim=-1) of the same float32 tensor",
+        "fft_rows_kernel")
+    yb = ff.fft_rows(Xb, inverse=True, real_out=True, mul=Hb, scale=1 / blk)
+    row("fused_fft rows inverse, broadcast product, real output 4374 x "
+        "1215", lambda: ff.fft_rows(Xb, inverse=True, real_out=True,
+                                    mul=Hb, scale=1 / blk),
+        lambda: ff.fused_fft_ref(Xb, "rows", inverse=True, real_out=True,
+                                 mul=Hb, scale=1 / blk), Xb,
+        fft_bound(Xb.numel(), blk, 8, 4, 8), inv,
+        (lambda: torch.fft.ifft(Xb * Hb, dim=-1).real, inv(yb)),
+        "composite: Xb * Hb, then cuFFT torch.fft.ifft(dim=-1), real part",
+        "fft_rows_kernel")
+    del xb, Xb, Hb, yb, xpad, F1, K
+    torch.cuda.empty_cache()
+
+    # end to end: the public call against cuFFT's real transforms
+    port = sig.fftconvolve(imgc, k31c, "same")
+    sl = (slice(15, 15 + 4096),) * 2
+
+    def lib():
+        fs = (n0, n0)
+        return torch.fft.irfft2(torch.fft.rfft2(imgc, s=fs)
+                                * torch.fft.rfft2(k31c, s=fs), s=fs)[sl]
+
+    err = float((lib() - port).abs().max())
+    tol = 5e-4 * float(port.abs().max())
+    check(err <= tol, f"fftconvolve end to end vs torch.fft ({err:.3e})")
+    e2e = {
+        "case": "fftconvolve 4096^2 f32 31x31 same (end to end)",
+        "route": "fused_fft: 2 + 2 passes, direct DFT of the 31x31 operand",
+        "ms": median_ms(lambda: sig.fftconvolve(imgc, k31c, "same"), n=20),
+        "library_ms": median_ms(lib, n=20),
+        "library_call": "torch.fft.rfft2 of both operands at 4320^2, "
+                        "product, irfft2 (cuFFT), cropped",
+        "max_abs_err_vs_library": err,
+    }
+    print(f"end to end {e2e['case']}: {e2e['ms']:.3f} ms, torch.fft "
+          f"{e2e['library_ms']:.3f} ms")
+    methods = []
+    for label, a, b in (("convolve 4096^2 f32 31x31 same", imgc, k31c),
+                        ("convolve 2^22 f32 257 taps same", x1c, h257c)):
+        entry = {"case": label, "auto": sig.choose_conv_method(a, b, "same")}
+        for m in ("direct", "fft"):
+            entry[f"{m}_ms"] = median_ms(
+                lambda m=m: sig.convolve(a, b, "same", method=m), n=10,
+                n_warmup=2)
+        methods.append(entry)
+        print(f"methods {label}: direct {entry['direct_ms']:.3f} ms, fft "
+              f"{entry['fft_ms']:.3f} ms, auto picks {entry['auto']}")
+    return labels, e2e, methods
+
+
 def main():
     import torch
 
@@ -899,6 +1234,7 @@ def main():
     from cupyimg_tpu_torch.core import boundary
     from cupyimg_tpu_torch.ops import _build
     from cupyimg_tpu_torch.ops import fused_dense as fd
+    from cupyimg_tpu_torch.ops import fused_fft as ff
     from cupyimg_tpu_torch.ops import fused_rank as fr
     from cupyimg_tpu_torch.ops import fused_separable as fs
     from cupyimg_tpu_torch.ops import iir
@@ -933,6 +1269,7 @@ def main():
     spline_gather_vs_plain(sg, torch)
     prefilter_vs_plain(iir, torch)
     morph_vs_plain(fs, torch)
+    fft_vs_plain(ff, torch)
     print(f"kernel-vs-plain: {time.perf_counter() - t0:.1f} s")
 
     # -- phase 4: the main path through the public API ----------------------
@@ -1116,6 +1453,15 @@ def main():
         check(launches[kernel] >= 1, f"{kernel} not launched on the main path")
     morph_launches, plain_rows = morphology_path(
         fs, ndi, sndi, torch, x3, xc3, img, imgc, x2.shape)
+    all_counters = dict(counters)
+    all_counters.update({
+        "fused_separable_open_close": fs.fused_separable_open_close,
+        "fused_separable_morph_pair": fs.fused_separable_morph_pair,
+        "fft_rows": ff.fft_rows,
+        "fft_strided": ff.fft_strided,
+    })
+    sig_launches, sig_inputs, sig_plain_rows = signal_path(
+        all_counters, torch, img, imgc)
 
     # -- phase 5: times -----------------------------------------------------
     F = torch.nn.functional
@@ -1336,9 +1682,13 @@ def main():
 
     morph_rows(fs, boundary, torch, rows, xc3, imgc)
     torch.cuda.empty_cache()
+    fft_labels, fft_e2e, conv_methods = fft_rows_phase5(ff, torch, rows, imgc,
+                                                        sig_inputs)
+    torch.cuda.empty_cache()
 
     print(json.dumps({"card": card, "cases": list(rows.values()),
-                      "plain_torch": plain_rows}))
+                      "plain_torch": plain_rows + sig_plain_rows,
+                      "end_to_end": [fft_e2e], "conv_methods": conv_methods}))
     stencil = "cupyimg_tpu/ops/pallas_stencil.py"
     kernels = [
         ("fused_separable_correlate", "fused_separable.cu",
@@ -1364,6 +1714,12 @@ def main():
     launches["fused_separable_morph"] = (
         morph_launches["fused_separable_open_close"]
         + morph_launches["fused_separable_morph_pair"])
+    kernels.append(
+        ("fused_fft", "fused_fft.cu",
+         "cupyimg_tpu/ops/pallas_fft.py:309, "
+         "cupyimg_tpu/ops/pallas_fft.py:395", fft_labels[1]))
+    launches["fused_fft"] = (sig_launches["fft_rows"]
+                             + sig_launches["fft_strided"])
     line = []
     for kname, src, replaces, case in kernels:
         r = rows[case]
@@ -1385,6 +1741,13 @@ def main():
             "shape": case,
             "card": card,
         })
+    line[-1]["entries"] = [
+        {k: rows[lb][k] for k in ("case", "ms", "kernel_ms", "plain_ms",
+                                  "bound_ms", "bound_by", "library_ms",
+                                  "library_call", "max_abs_err")}
+        for lb in fft_labels]
+    line[-1]["launches_by_entry"] = {k: sig_launches[k]
+                                     for k in ("fft_rows", "fft_strided")}
     print(f"wall: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

@@ -26,7 +26,8 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
-SOURCES = ("fused_separable", "fused_dense", "fused_rank", "spline_gather")
+SOURCES = ("fused_separable", "fused_dense", "fused_rank", "spline_gather",
+           "fused_fft")
 # flags of one source only: the gather rounds every product and sum on its
 # own, as its plain PyTorch version does (no fused multiply-adds)
 EXTRA_FLAGS = {"spline_gather": ["-fmad=false"]}

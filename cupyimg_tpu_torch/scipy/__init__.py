@@ -1,3 +1,3 @@
-"""SciPy-compatible op layer: scipy.ndimage's separable filters."""
+"""SciPy-compatible op layer: scipy.ndimage and scipy.signal."""
 
-from cupyimg_tpu_torch.scipy import ndimage  # noqa: F401
+from cupyimg_tpu_torch.scipy import ndimage, signal  # noqa: F401

@@ -1,5 +1,6 @@
 """scipy.ndimage-compatible API on torch tensors: the filters, the
-interpolation functions, morphology and the distance transforms."""
+interpolation functions, morphology, the distance transforms and the
+Fourier-domain filters."""
 
 from cupyimg_tpu_torch.scipy.ndimage.filters import (  # noqa: F401
     generic_filter,
@@ -60,4 +61,10 @@ from cupyimg_tpu_torch.scipy.ndimage._distance_transform import (  # noqa: F401
     distance_transform_edt,
     distance_transform_cdt,
     distance_transform_bf,
+)
+from cupyimg_tpu_torch.scipy.ndimage.fourier import (  # noqa: F401
+    fourier_gaussian,
+    fourier_uniform,
+    fourier_shift,
+    fourier_ellipsoid,
 )

@@ -134,6 +134,15 @@ def distance_transform_edt(
     x = util.as_tensor(input) != 0
     ndim = x.ndim
     samp = _sampling(sampling, ndim)
+    if x.numel() == 0:  # scipy: empty distances, (ndim, *shape) indices
+        results = []
+        if return_distances:
+            results.append(torch.zeros(x.shape, dtype=torch.float32,
+                                       device=x.device))
+        if return_indices:
+            results.append(torch.zeros((ndim,) + tuple(x.shape),
+                                       dtype=torch.int32, device=x.device))
+        return results[0] if len(results) == 1 else tuple(results)
     dist, pos = _edt_core(x, samp, bool(return_indices))
     # scipy's answer for an input without background: the nearest
     # "feature" is the virtual index (-1, 0, ..., 0)

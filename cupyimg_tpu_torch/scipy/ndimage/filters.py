@@ -334,6 +334,8 @@ def _run_1d_filters(input, axes_params, output, dtype_mode):
     array read by pass k+1."""
     x = util.as_tensor(input)
     out_dtype = dtypes.resolve_output_dtype(output, x.dtype)
+    if x.numel() == 0:  # scipy shape-preserves empty inputs
+        return x.new_zeros(x.shape, dtype=dtypes.to_torch(out_dtype))
     fused = _try_fused_separable(x, axes_params, out_dtype)
     if fused is not None:
         return fused
@@ -378,6 +380,8 @@ def uniform_filter1d(
         input.dtype, np.float64, dtype_mode
     )
     out_dtype = dtypes.resolve_output_dtype(output, input.dtype, acc_dtype)
+    if input.numel() == 0:  # scipy shape-preserves empty inputs
+        return input.new_zeros(input.shape, dtype=dtypes.to_torch(out_dtype))
     acc = stencil.correlate1d_axis(
         input, np.ones(size), axis, mode, cval, origin, acc_dtype
     )
@@ -771,6 +775,8 @@ def _min_or_max_filter(
         boundary.check_mode(m)
     out_dtype = dtypes.resolve_output_dtype(output, input.dtype)
     out_torch = dtypes.to_torch(out_dtype)
+    if input.numel() == 0:  # scipy shape-preserves empty inputs
+        return input.new_zeros(input.shape, dtype=out_torch)
 
     # scipy's minimum_filter and maximum_filter reduce over the SAME
     # window (no footprint mirroring for max); only grey_dilation
@@ -868,6 +874,8 @@ def _min_or_max_filter1d(input, size, axis, output, mode, cval, origin,
     util.check_origin(origin, size)
     boundary.check_mode(mode)
     out_dtype = dtypes.resolve_output_dtype(output, input.dtype)
+    if input.numel() == 0:  # scipy shape-preserves empty inputs
+        return input.new_zeros(input.shape, dtype=dtypes.to_torch(out_dtype))
     out = _min_or_max_1d(input, size, axis, mode, cval, origin, is_min)
     return out.to(dtypes.to_torch(out_dtype), copy=out is input)
 
@@ -917,6 +925,8 @@ def _rank_filter(input, rank_fn, size, footprint, output, mode, cval, origin):
         rank += filter_size
     if rank < 0 or rank >= filter_size:
         raise RuntimeError("rank not within filter footprint size")
+    if input.numel() == 0:  # scipy shape-preserves empty inputs
+        return input.new_zeros(input.shape, dtype=out_dtype)
     if rank == 0:
         return _min_or_max_filter(
             input, None, footprint, None, output, mode, cval, origins, True
@@ -1046,6 +1056,8 @@ def generic_filter(
         util.check_origin(o, w)
     boundary.check_mode(mode)
     out_dtype = dtypes.resolve_output_dtype(output, input.dtype)
+    if input.numel() == 0:  # scipy shape-preserves empty inputs
+        return input.new_zeros(input.shape, dtype=dtypes.to_torch(out_dtype))
     windows = stencil.gather_windows(input, footprint, origins, mode, cval)
     flat = windows.reshape(windows.shape[0], -1).T
 
@@ -1085,6 +1097,8 @@ def generic_filter1d(
     util.check_origin(origin, filter_size)
     boundary.check_mode(mode)
     out_dtype = dtypes.resolve_output_dtype(output, input.dtype)
+    if input.numel() == 0:  # scipy shape-preserves empty inputs
+        return input.new_zeros(input.shape, dtype=dtypes.to_torch(out_dtype))
 
     size = int(filter_size)
     lo = size // 2 + int(origin)

@@ -130,6 +130,18 @@ def _finalize(out, out_dtype):
     return out.to(dtypes.to_torch(out_dtype))
 
 
+def _empty_input(x, output_shape, out_dtype, mode, cval):
+    """scipy's result for an input without samples: an empty output, or
+    ``cval`` everywhere in the constant modes; other modes have nothing
+    to extend and raise, as scipy's prefilter pad does."""
+    if int(np.prod(output_shape)) == 0 or mode in ("constant",
+                                                   "grid-constant"):
+        out = torch.full(tuple(output_shape), float(cval),
+                         dtype=torch.float64, device=x.device)
+        return _finalize(out, out_dtype)
+    raise ValueError(f"can't extend an empty input in mode {mode!r}")
+
+
 def _host(a):
     """A matrix/offset argument as a host float64 numpy array."""
     if isinstance(a, torch.Tensor):
@@ -178,7 +190,7 @@ def spline_filter(
     work = np.promote_types(out_dtype,
                             _float_work_dtype(x.dtype, allow_float32))
     y = x.to(dtypes.to_torch(work)).contiguous()
-    if x.ndim > 0:
+    if x.numel() > 0:
         y = _spline_axes(y, order, mode, tuple(range(x.ndim)))
     return y.to(dtypes.to_torch(out_dtype))
 
@@ -244,6 +256,8 @@ def map_coordinates(
     coord_work = np.float32 if allow_float32 else np.float64
     cdt = np.promote_types(dtypes.to_numpy(coordinates.dtype), coord_work)
     coordinates = coordinates.to(dtypes.to_torch(cdt))
+    if x.numel() == 0:
+        return _empty_input(x, coordinates.shape[1:], out_dtype, mode, cval)
 
     filtered, npad = _prefiltered(x, order, mode, cval, prefilter,
                                   allow_float32)
@@ -327,6 +341,8 @@ def affine_transform(
         mode = "constant"
 
     out_dtype = _resolve_out_dtype(output, x)
+    if x.numel() == 0:
+        return _empty_input(x, output_shape, out_dtype, mode, cval)
     filtered, npad = _prefiltered(x, order, mode, cval, prefilter,
                                   allow_float32)
     # prepadding happens only for nearest/grid-constant, so in mode
@@ -359,6 +375,8 @@ def shift(
             mode, cval, prefilter, allow_float32=allow_float32,
         )
     out_dtype = _resolve_out_dtype(output, x)
+    if x.numel() == 0:
+        return _empty_input(x, x.shape, out_dtype, mode, cval)
     filtered, npad = _prefiltered(x, order, mode, cval, prefilter,
                                   allow_float32)
     out = _resample(filtered, np.ones(x.ndim),
@@ -421,6 +439,8 @@ def zoom(
             factors.append(0.0)
 
     out_dtype = _resolve_out_dtype(output, x)
+    if x.numel() == 0:
+        return _empty_input(x, output_shape, out_dtype, mode, cval)
     filtered, npad = _prefiltered(x, order, mode, cval, prefilter,
                                   allow_float32)
     # grid_mode samples at (o + 0.5) * factor - 0.5
@@ -505,6 +525,8 @@ def rotate(
         # read the other axes at their integer output index with order 0
         # (an nd spline would smooth them when prefilter=False)
         out_dtype = _resolve_out_dtype(output, x)
+        if x.numel() == 0:
+            return _empty_input(x, output_shape, out_dtype, mode, cval)
         filtered, npad = _prefiltered(x, order, mode, cval, prefilter,
                                       allow_float32, axes)
         offset[axes] += npad

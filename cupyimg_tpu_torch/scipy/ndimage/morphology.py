@@ -399,8 +399,8 @@ def _flat_rect_sizes(input, size, footprint, structure, origin, axes):
     skimage square or rectangle, counts), else None."""
     if structure is not None or (size is None and footprint is None):
         return None
-    if not input.is_floating_point():
-        return None
+    if not input.is_floating_point() or input.numel() == 0:
+        return None  # empty inputs take the two calls' early return
     ndim = input.ndim
     size, footprint, structure, origin = _grey_axes_args(
         input, size, footprint, structure, origin, axes

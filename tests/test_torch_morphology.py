@@ -410,3 +410,59 @@ def test_skimage_binary_matches_scipy():
           .astype(bool))
     with pytest.raises(NotImplementedError):
         skm.erosion(b, d, out=torch.empty_like(b))
+
+
+# ---------------------------------------------------------------------------
+# zero-size inputs (ROADMAP C): scipy's empty results, shaped and typed as
+# scipy's (the distance transforms in the port's dtypes, ROADMAP C)
+# ---------------------------------------------------------------------------
+
+_EMPTY_CALLS = {
+    "uniform_filter": (3,), "uniform_filter1d": (3, 0),
+    "gaussian_filter": (1,),
+    "correlate": (np.ones((3, 3)),), "median_filter": (3,),
+    "rank_filter": (1, 3), "percentile_filter": (30, 3),
+    "minimum_filter": (3,), "maximum_filter1d": (3, 0),
+    "grey_opening": (3,), "grey_closing": (3,), "grey_erosion": (3,),
+    "grey_dilation": (3,), "morphological_gradient": (3,),
+    "morphological_laplace": (3,), "white_tophat": (3,),
+    "black_tophat": (3,), "binary_erosion": (), "binary_fill_holes": (),
+    "shift": (1.5,), "zoom": (2,), "rotate": (30,),
+    "affine_transform": (np.eye(2),), "spline_filter": (),
+    "map_coordinates": (np.zeros((2, 0, 5)),),
+    "distance_transform_edt": (), "distance_transform_bf": (),
+    "distance_transform_cdt": (),
+}
+_PORT_DTYPES = {"distance_transform_edt": torch.float32,
+                "distance_transform_bf": torch.float32}
+
+
+@pytest.mark.parametrize("name", sorted(_EMPTY_CALLS))
+def test_zero_size_inputs_match_scipy(name):
+    """A (0, 5) input gives scipy's result: (0, 5), or (0, 10) for a zoom
+    by 2, or ``cval`` over the rotated bounding box."""
+    x = np.zeros((0, 5), np.float32)
+    if name.startswith("distance") or name.startswith("binary"):
+        x = x > 0
+    args = _EMPTY_CALLS[name]
+    ref = getattr(sndi, name)(x, *args)
+    got = getattr(ndi, name)(torch.from_numpy(x), *args)
+    assert tuple(got.shape) == ref.shape
+    want = _PORT_DTYPES.get(name)
+    assert got.dtype == (want or torch.from_numpy(ref).dtype)
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+def test_zero_size_interpolation_other_modes():
+    """An empty input has nothing to extend: a non-empty output outside
+    the constant modes raises, as scipy's prefilter pad does."""
+    x = torch.zeros(0, 5)
+    assert ndi.shift(x, 1, mode="nearest").shape == (0, 5)
+    with pytest.raises(ValueError):
+        ndi.affine_transform(x, np.eye(2), output_shape=(2, 3),
+                             mode="nearest")
+    got = ndi.affine_transform(x, np.eye(2), output_shape=(2, 3),
+                               mode="grid-constant", cval=2.5)
+    np.testing.assert_array_equal(got.numpy(), np.full((2, 3), 2.5))
+    d, i = ndi.distance_transform_edt(x > 0, return_indices=True)
+    assert d.shape == (0, 5) and tuple(i.shape) == (2, 0, 5)
