@@ -17,16 +17,23 @@ Phases, each fatal on failure (a traceback and a non-zero exit):
    spline gather (both entries, orders 0-5, every mode, float32/float64
    data and coordinates, 2-D and 3-D, knife-edge and far-out
    coordinates, NaN and complex data: 1e-5 / 1e-12 of max|x|, order 0
-   exactly), the spline prefilter's FIR on the fused separable kernel
+   exactly), each of the gather's 408 table instances and its generic
+   instance once (every order pattern, float32/float64 data and
+   coordinates, real and complex, 1-D to 3-D; 1e-12 where data and
+   coordinates are both float64), the spline prefilter's FIR on the
+   fused separable kernel
    against the recursion (orders 2-5, 1e-5 of the coefficients' range),
    and the fused separable kernel's two-stage (opening, closing) and
    pair (gradient, laplace) modes, exactly, NaN included, under every
    mode, sizes 1-9 mixed across axes, even sizes with origins under wrap,
    and the widest windows the planner fuses; the FFT kernel's rows and
    strided entries (forward, real input, inverse with a broadcast
-   product, scale and real output, a round trip) at the smallest and
-   largest sizes its gate admits and at 384, 1215, 2000 and 4320
-   (5e-5 / 1e-4 of max|X|, the JAX suite's tolerances);
+   product, scale and real output, a round trip, the folded zero pad
+   and crop with odd starts) at the smallest and largest sizes its gate
+   admits and at 384, 1215, 2000 and 4320 (5e-5 / 1e-4 of max|X|, the
+   JAX suite's tolerances), and the 2-D and 1-D convolution routes with
+   the pad and crop folded in, modes full, same and valid, against their
+   plain versions and scipy;
 4. the main path: eleven public ``scipy.ndimage`` filter calls and ten
    interpolation calls at full size (256^3 and 2048^2/4096^2 float32, a
    4096^2 int32 image), each checked to launch its kernels exactly as
@@ -50,7 +57,8 @@ Phases, each fatal on failure (a traceback and a non-zero exit):
 5. times from CUDA events (median over up to 100 launches after a
    warm-up), printed as one ``{"cases": ...}`` and one ``{"kernels":
    ...}`` JSON line, with each kernel's bound and a PyTorch yardstick
-   (cuFFT for the FFT kernel's passes), the end-to-end fftconvolve
+   (cuFFT for the FFT kernel's passes, cuDNN conv2d for the 37-tap
+   prefilter), the end-to-end fftconvolve
    against torch.fft, and the direct and fft times of the main-path
    convolutions.
 
@@ -59,6 +67,7 @@ printing no result, when CUDA is not available.
 """
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -97,13 +106,14 @@ def median_ms(fn, *args, n=N_TIMED, n_warmup=5):
     return float(np.median(res.gpu_times[0]) * 1e3)
 
 
-def kernel_ms(launch, kernel, n=20):
-    """Device time of one launch of the CUDA kernel named ``kernel``
-    alone, from torch.profiler over ``n`` calls of ``launch``: the wrapper's
-    host work (planning, argument checks) is left out.  None when the
-    profiler records no such kernel.  The profiler can lose kernel
-    records (a run of 20 calls once came back with 16): such a run is
-    profiled again, up to three times; more records than calls fail."""
+def kernel_ms(launch, kernel, n=20, per_call=1):
+    """Device time of the launches of the CUDA kernel named ``kernel``
+    in one call of ``launch`` (``per_call`` of them), from torch.profiler
+    over ``n`` calls: the wrapper's host work (planning, argument checks)
+    is left out.  None when the profiler records no such kernel.  The
+    profiler can lose kernel records (a run of 20 calls once came back
+    with 16): such a run is profiled again, up to three times; more
+    records than launches fail."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -123,12 +133,14 @@ def kernel_ms(launch, kernel, n=20):
                 count += ev.count
         if count == 0:
             return None
-        check(count <= n, f"{kernel}: {count} launches profiled, not {n}")
-        if count == n:
-            return total_us / count / 1e3
-        print(f"{kernel}: the profiler recorded {count} of {n} launches; "
+        want = n * per_call
+        check(count <= want, f"{kernel}: {count} launches profiled, not "
+                             f"{want}")
+        if count == want:
+            return total_us / n / 1e3
+        print(f"{kernel}: the profiler recorded {count} of {want} launches; "
               "profiling again")
-    check(False, f"{kernel}: {count} launches profiled, not {n}")
+    check(False, f"{kernel}: {count} launches profiled, not {want}")
 
 
 def bound(numel, flops=0.0, minmax_ops=0.0):
@@ -589,6 +601,89 @@ def spline_gather_vs_plain(sg, torch):
     print(f"kernel-vs-plain spline_gather: {n_cases} cases passed")
 
 
+def gather_instances_vs_plain(sg, torch):
+    """Every instance of the spline gather's table (both entries, each
+    order pattern, float32/float64 data and coordinates, real and
+    complex) and its generic instance (mixed orders, a 2-D plane pattern,
+    a 3-axis field with an order-0 axis) once on the card against the
+    plain version, at knife-edge coordinates in a mode that turns with
+    the case: within 1e-5 of max|x| (1e-12 where data and coordinates
+    are both float64), order 0 exactly.  Each case records which
+    instance served it (``sg.instance``); every instance must serve
+    one."""
+    rng = np.random.RandomState(11)
+    shapes = {1: (61,), 2: (23, 19), 3: (9, 8, 7)}
+    out_shapes = {1: (37,), 2: (13, 11), 3: (6, 5, 7)}
+    mats = {1: np.array([[0.7]]),
+            2: np.array([[0.8, 0.65], [-0.6, 0.9]]),
+            3: np.array([[0.9, 0.1, 0.2], [-0.1, 1.2, 0.0], [0.3, 0.0, 0.7]])}
+    dts = {(0, 1): torch.float32, (0, 2): torch.complex64,
+           (1, 1): torch.float64, (1, 2): torch.complex128}
+    cases = []
+    for entry, patterns in (("affine", sg.AFFINE_PATTERNS),
+                            ("map", sg.MAP_PATTERNS)):
+        for part in range(8):
+            t, c, nc = part >> 2, (part >> 1) & 1, (part & 1) + 1
+            for orders in patterns:
+                cases.append((entry, orders, dts[(t, nc)],
+                              (torch.float32, torch.float64)[c]))
+    generic = [("affine", (1, 3), torch.float32, torch.float64),
+               ("affine", (0, 3), torch.complex64, torch.float64),
+               ("map", (0, 1, 1), torch.float64, torch.float32),
+               ("map", (2, 5), torch.float32, torch.float32)]
+    served, worst = set(), 0.0
+    for i, (entry, orders, dt, cdt) in enumerate(cases + generic):
+        nd = len(orders)
+        mode = MODES[i % len(MODES)]
+        x = torch.from_numpy(rng.rand(*shapes[nd]) - 0.25)
+        if dt.is_complex:
+            x = x + 1j * torch.from_numpy(rng.rand(*shapes[nd]))
+        x = x.to(dt).cuda()
+        cval = 0.5 - 0.25j if dt.is_complex else 0.5
+        if entry == "affine":
+            off = rng.uniform(-2, 2, nd)
+            args = (x, mats[nd], off, out_shapes[nd], list(orders), mode,
+                    cval, cdt)
+            got, ref = sg.spline_affine(*args), sg.spline_affine_ref(*args)
+            n_out = int(np.prod(out_shapes[nd]))
+        else:
+            cf = torch.from_numpy(knife_coords(
+                shapes[nd], (7, 9), rng,
+                np.float32 if cdt == torch.float32 else np.float64)).cuda()
+            got = sg.spline_map(x, cf, list(orders), mode, cval)
+            ref = sg.spline_map_ref(x, cf, list(orders), mode, cval)
+            n_out = 63
+        inst = sg.instance(entry, orders, dt, cdt, x.numel(), n_out)
+        served.add(inst)
+        torch.cuda.synchronize()
+        tag = f"{entry} {orders} {dt} coords {cdt} {mode} ({inst})"
+        check(got.shape == ref.shape and got.dtype == ref.dtype,
+              f"gather instance {tag}: shape/dtype")
+        if max(orders) == 0:
+            check(same(torch.view_as_real(got) if dt.is_complex else got,
+                       torch.view_as_real(ref) if dt.is_complex else ref),
+                  f"gather instance {tag}: order 0 differs from plain")
+        else:
+            # 1e-12 where data and coordinates are float64; float32
+            # weights differ from the plain version's on the card by an
+            # ulp (it divides by a scalar as a product by the reciprocal)
+            tol = 1e-12 if (dt in (torch.float64, torch.complex128)
+                            and cdt == torch.float64) else 1e-5
+            scale = max(float(x.abs().max()), abs(cval))
+            err = float((got - ref).abs().max())
+            check(err <= tol * scale, f"gather instance {tag}: {err:.3e} > "
+                                      f"{tol * scale:.1e}")
+            worst = max(worst, err / (tol * scale))
+    n_fast = sum(1 for i in served if i.key is not None)
+    check(n_fast == len(cases) and sg.Instance("affine", 0, None) in served
+          and sg.Instance("map", 0, None) in served,
+          f"gather instances: {n_fast} fast of {len(cases)}, generic "
+          "not served")
+    print(f"kernel-vs-plain spline_gather instances: {n_fast} fast "
+          f"instances and the generic one ({len(generic)} cases), worst "
+          f"err/tol {worst:.3f}")
+
+
 def prefilter_vs_plain(iir, torch):
     """The spline prefilter's FIR (one fused separable launch per pole)
     against the recursion, float32, within 1e-5 of the coefficients'
@@ -621,7 +716,7 @@ def prefilter_vs_plain(iir, torch):
 
 
 def time_row(label, launch, plain, x, bound_ms_by, atol, library=None,
-             library_call=None, n_plain=20, kernel=None):
+             library_call=None, n_plain=20, kernel=None, per_call=1):
     """One timed case: the kernel's wrapper (``ms``, CUDA events around
     each call, so host work that starves the card counts), the kernel
     alone (``kernel_ms``, profiler), its plain version, a copy of the
@@ -651,7 +746,8 @@ def time_row(label, launch, plain, x, bound_ms_by, atol, library=None,
     row = {
         "case": label,
         "ms": median_ms(launch),
-        "kernel_ms": None if kernel is None else kernel_ms(launch, kernel),
+        "kernel_ms": None if kernel is None else kernel_ms(launch, kernel,
+                                                           per_call=per_call),
         "plain_ms": median_ms(plain, n=n_plain, n_warmup=min(5, n_plain)),
         "copy_ms": median_ms(out.copy_, x),
         "bound_ms": bound_ms_by[0],
@@ -931,6 +1027,17 @@ def fft_vs_plain(ff, torch):
                  dict(inverse=True, real_out=True, mul=c64(shape[1:]),
                       scale=1.0 / n), 1e-4),
             ]
+            # the folded pad (an axis 37 short of n) and crop (odd starts)
+            short = x[:, :n - 37].contiguous()
+            cases += [
+                ("forward, zero pad, window (3, n - 10)", short,
+                 dict(n=n, window=(3, n - 10)), 5e-5),
+                ("forward, real input, zero pad", short.real.contiguous(),
+                 dict(n=n), 5e-5),
+                ("inverse, real output, scale, window (1, n // 2)", x,
+                 dict(inverse=True, real_out=True, scale=1.0 / n,
+                      window=(1, n // 2)), 1e-4),
+            ]
             for label, inp, kw, rel in cases:
                 got = launch(inp, **kw)
                 ref = ff.fused_fft_ref(inp, entry, **kw)
@@ -958,6 +1065,53 @@ def fft_vs_plain(ff, torch):
     print(f"fused_fft kernel-vs-plain: {count} cases (n = "
           f"{', '.join(map(str, ns))}; rows and strided), worst err/tol "
           f"{worst:.3f}")
+    count += fft_routes_vs_plain(torch)
+
+
+def fft_routes_vs_plain(torch):
+    """The routes with the folded pad and crop: the 2-D and 1-D real
+    convolutions on the card, reading unpadded operands and storing the
+    window of modes full, same and valid (and an odd start), against the
+    same route's plain version on the host (the kernel's passes in
+    PyTorch) and against scipy: 1e-4 / 5e-4 of max|ref|.  Returns the
+    number of cases."""
+    import scipy.signal as ss
+
+    from cupyimg_tpu_torch.scipy.signal import signaltools as st
+
+    rng = np.random.default_rng(6)
+    count = 0
+    for s1, s2 in (((300, 280), (13, 31)), ((257, 301), (140, 129))):
+        a = rng.standard_normal(s1).astype(np.float32)
+        b = rng.standard_normal(s2).astype(np.float32)
+        shape = [x + y - 1 for x, y in zip(s1, s2)]
+        fshape = [st.next_fast_len(v) for v in shape]
+        for mode in ("full", "same", "valid"):
+            win = st._mode_window(shape, s1, s2, mode, [0, 1])
+            cases = [("2-D", lambda v, w, win=win: st._fused_fft2_real_conv(
+                v, w, [0, 1], fshape, win), ss.fftconvolve(a, b, mode)),
+                     ("1-D rows", lambda v, w, win=win:
+                      st._fused_fft1_real_conv(v, w[:1], [1], fshape[1:],
+                                               (win[1][0] + 1,
+                                                win[1][1] - 1)),
+                      None)]
+            for label, route, want in cases:
+                got = route(torch.from_numpy(a).cuda(),
+                            torch.from_numpy(b).cuda()).cpu()
+                ref = route(torch.from_numpy(a), torch.from_numpy(b))
+                tol = 1e-4 * float(ref.abs().max())
+                err = float((got - ref).abs().max())
+                check(got.shape == ref.shape and err <= tol,
+                      f"fused_fft route {label} {s1} {s2} {mode}: "
+                      f"{err:.3e} > {tol:.3e}")
+                if want is not None:
+                    err = float(np.abs(got.numpy() - want).max())
+                    check(err <= 5e-4 * np.abs(want).max(),
+                          f"fused_fft route {label} {mode} vs scipy")
+                count += 1
+    print(f"fused_fft routes with the folded pad and crop: {count} cases "
+          "(modes full, same, valid; 2-D and 1-D) passed")
+    return count
 
 
 def signal_path(counters, torch, img, imgc):
@@ -965,8 +1119,10 @@ def signal_path(counters, torch, img, imgc):
     at full size, each held against scipy on the host (float64 inputs;
     5e-4 * max|ref|, the JAX suite's convolution tolerance) and each
     call's launches against its route: the FFT kernel's two passes per
-    2-D transform (a 31x31 second operand is transformed by a direct DFT
-    product), its rows entry for the 1-D overlap-add blocks, and
+    2-D transform, a rows launch and two strided launches (the strided
+    entry's two steps), the input read unpadded and only the "same"
+    window written (a 31x31 second operand is transformed by a direct
+    DFT product), its rows entry for the 1-D overlap-add blocks, and
     torch.fft (no launch) where the gate declines the padded size.  The
     counts are set to 0 just before this path and read just after.
     Returns the path's launches, its inputs, and the plain-torch calls'
@@ -1006,7 +1162,8 @@ def signal_path(counters, torch, img, imgc):
         x1.astype(f64), h257.astype(f64), "same"))
     corr1 = ref("corr1", lambda: ss.oaconvolve(
         x1.astype(f64), h257[::-1].astype(f64), "same"))
-    two_d = {"fft_rows": 2, "fft_strided": 2}
+    # two rows passes and two strided passes of two steps each
+    two_d = {"fft_rows": 2, "fft_strided": 4}
     for a, b in ((imgc, k31c), (x1c, h257c)):
         check(sig.choose_conv_method(a, b, "same") == "fft",
               "choose_conv_method: fft expected on the main path")
@@ -1110,11 +1267,11 @@ def fft_rows_phase5(ff, torch, rows, imgc, inputs):
 
     k31c, x1c, h257c = inputs["k31c"], inputs["x1c"], inputs["h257c"]
     n0 = 4320
-    xpad = st._pad_to(imgc, (0, 1), (n0, n0))
+    xpad = st._zero_pad(imgc, [(0, n0 - 4096)] * 2)
     big = xpad.numel()
     F1 = ff.fft_rows(xpad)
     F = ff.fft_strided(F1.reshape(1, n0, n0))
-    K = ff.fft2(st._pad_to(k31c, (0, 1), (n0, n0))).reshape(1, n0, n0)
+    K = ff.fft2(k31c, s=(n0, n0)).reshape(1, n0, n0)
     G = ff.fft_strided(F, inverse=True, mul=K).reshape(n0, n0)
     fwd = lambda ref: 5e-5 * float(ref.abs().max())  # noqa: E731
     inv = lambda ref: 1e-4 * float(ref.abs().max())  # noqa: E731
@@ -1122,8 +1279,13 @@ def fft_rows_phase5(ff, torch, rows, imgc, inputs):
 
     def row(label, launch, plain, x, bound_ms_by, atol, library, lib_call,
             kernel):
+        before = ff.fft_rows.launches + ff.fft_strided.launches
+        launch()
+        per_call = ff.fft_rows.launches + ff.fft_strided.launches - before
         rows[label] = time_row(label, launch, plain, x, bound_ms_by, atol,
-                               library, lib_call, n_plain=5, kernel=kernel)
+                               library, lib_call, n_plain=5, kernel=kernel,
+                               per_call=per_call)
+        rows[label]["launches_per_call"] = per_call
         labels.append(label)
 
     s = 1.0 / (n0 * n0)
@@ -1132,14 +1294,14 @@ def fft_rows_phase5(ff, torch, rows, imgc, inputs):
         xpad, fft_bound(big, n0, 4, 8), fwd,
         (lambda: torch.fft.fft(xpad, dim=-1), fwd(F1)),
         "cuFFT: torch.fft.fft(dim=-1) of the same float32 tensor",
-        "fft_rows_kernel")
+        "::fft_")
     row("fused_fft strided forward 4320^2 c64 (fftconvolve pass 2)",
         lambda: ff.fft_strided(F1.reshape(1, n0, n0)),
         lambda: ff.fused_fft_ref(F1.reshape(1, n0, n0), "strided"), F1,
         fft_bound(big, n0, 8, 8), fwd,
         (lambda: torch.fft.fft(F1.reshape(1, n0, n0), dim=1), fwd(F)),
         "cuFFT: torch.fft.fft(dim=1) of the same complex64 tensor",
-        "fft_strided_kernel")
+        "::fft_")
     row("fused_fft strided inverse with the spectrum product 4320^2 "
         "(fftconvolve pass 3)",
         lambda: ff.fft_strided(F, inverse=True, mul=K),
@@ -1147,7 +1309,7 @@ def fft_rows_phase5(ff, torch, rows, imgc, inputs):
         fft_bound(big, n0, 8, 8, 8), inv,
         (lambda: torch.fft.ifft(F * K, dim=1, norm="forward"), inv(G)),
         "composite: F * K, then cuFFT torch.fft.ifft(dim=1, "
-        "norm='forward')", "fft_strided_kernel")
+        "norm='forward')", "::fft_")
     row("fused_fft rows inverse, real output, scaled 4320^2 "
         "(fftconvolve pass 4)",
         lambda: ff.fft_rows(G, inverse=True, real_out=True, scale=s),
@@ -1157,12 +1319,58 @@ def fft_rows_phase5(ff, torch, rows, imgc, inputs):
         (lambda: torch.fft.ifft(G, dim=-1).real, None),
         "composite: cuFFT torch.fft.ifft(dim=-1), then the real part "
         "(timed only: 1/n0 where the pass scales by 1/(n0*n1))",
-        "fft_rows_kernel")
+        "::fft_")
     del F, G
+    # the main path's passes, the pad and the crop folded in: 4096^2 read,
+    # 4320-point transforms, the "same" window (15, 4096) written
+    m0, o0 = 4096, 15
+    win = (o0, m0)
+    P1 = ff.fft_rows(imgc, n=n0)
+    P2 = ff.fft_strided(P1.reshape(1, m0, n0), n=n0)
+    P3 = ff.fft_strided(P2, inverse=True, mul=K, window=win)
+    row("fused_fft rows forward, real input 4096^2 at 4320, pad folded "
+        "(fftconvolve pass 1)", lambda: ff.fft_rows(imgc, n=n0),
+        lambda: ff.fused_fft_ref(imgc, "rows", n=n0), imgc,
+        fft_bound(m0 * n0, n0, 4 * m0 / n0, 8), fwd,
+        (lambda: torch.fft.fft(imgc, n=n0, dim=-1), fwd(P1)),
+        "cuFFT: torch.fft.fft(n=4320, dim=-1) of the same float32 tensor",
+        "::fft_")
+    row("fused_fft strided forward 4096 -> 4320 rows x 4320 c64, pad folded "
+        "(fftconvolve pass 2)",
+        lambda: ff.fft_strided(P1.reshape(1, m0, n0), n=n0),
+        lambda: ff.fused_fft_ref(P1.reshape(1, m0, n0), "strided", n=n0),
+        P1, fft_bound(big, n0, 8 * m0 / n0, 8), fwd,
+        (lambda: torch.fft.fft(P1.reshape(1, m0, n0), n=n0, dim=1),
+         fwd(P2)),
+        "cuFFT: torch.fft.fft(n=4320, dim=1) of the same complex64 tensor",
+        "::fft_")
+    row("fused_fft strided inverse with the product, window 4096 rows "
+        "(fftconvolve pass 3)",
+        lambda: ff.fft_strided(P2, inverse=True, mul=K, window=win),
+        lambda: ff.fused_fft_ref(P2, "strided", inverse=True, mul=K,
+                                 window=win), P2,
+        fft_bound(big, n0, 8, 8 * m0 / n0, 8), inv,
+        (lambda: torch.fft.ifft(P2 * K, dim=1, norm="forward")[:, o0:o0 + m0],
+         inv(P3)),
+        "composite: P2 * K, cuFFT torch.fft.ifft(dim=1, norm='forward'), "
+        "the window sliced", "::fft_")
+    row("fused_fft rows inverse, real output, scaled, window 4096^2 "
+        "(fftconvolve pass 4)",
+        lambda: ff.fft_rows(P3.reshape(m0, n0), inverse=True, real_out=True,
+                            scale=s, window=win),
+        lambda: ff.fused_fft_ref(P3.reshape(m0, n0), "rows", inverse=True,
+                                 real_out=True, scale=s, window=win), P3,
+        fft_bound(m0 * n0, n0, 8, 4 * m0 / n0), inv,
+        (lambda: torch.fft.ifft(P3.reshape(m0, n0), dim=-1).real[:, o0:o0 + m0],
+         None),
+        "composite: cuFFT torch.fft.ifft(dim=-1), the real part of the "
+        "window (timed only: 1/n0 where the pass scales by 1/(n0*n1))",
+        "::fft_")
+    del P1, P2, P3
     nb, blk = 4374, 1215
-    xb = st._pad_to(st._zero_pad(x1c, [(0, nb * 959 - x1c.numel())])
-                    .reshape(nb, 959), (1,), (blk,))
-    Hb = ff.fft_rows(st._pad_to(h257c.reshape(1, -1), (1,), (blk,)))
+    xb = st._zero_pad(st._zero_pad(x1c, [(0, nb * 959 - x1c.numel())])
+                      .reshape(nb, 959), [(0, 0), (0, blk - 959)])
+    Hb = ff.fft_rows(h257c.reshape(1, -1), n=blk)
     Xb = ff.fft_rows(xb)
     row("fused_fft rows forward, real input 4374 x 1215 (oaconvolve "
         "2^22 blocks)", lambda: ff.fft_rows(xb),
@@ -1170,7 +1378,7 @@ def fft_rows_phase5(ff, torch, rows, imgc, inputs):
         fft_bound(xb.numel(), blk, 4, 8), fwd,
         (lambda: torch.fft.fft(xb, dim=-1), fwd(Xb)),
         "cuFFT: torch.fft.fft(dim=-1) of the same float32 tensor",
-        "fft_rows_kernel")
+        "::fft_")
     yb = ff.fft_rows(Xb, inverse=True, real_out=True, mul=Hb, scale=1 / blk)
     row("fused_fft rows inverse, broadcast product, real output 4374 x "
         "1215", lambda: ff.fft_rows(Xb, inverse=True, real_out=True,
@@ -1180,7 +1388,7 @@ def fft_rows_phase5(ff, torch, rows, imgc, inputs):
         fft_bound(Xb.numel(), blk, 8, 4, 8), inv,
         (lambda: torch.fft.ifft(Xb * Hb, dim=-1).real, inv(yb)),
         "composite: Xb * Hb, then cuFFT torch.fft.ifft(dim=-1), real part",
-        "fft_rows_kernel")
+        "::fft_")
     del xb, Xb, Hb, yb, xpad, F1, K
     torch.cuda.empty_cache()
 
@@ -1255,9 +1463,22 @@ def main():
     _build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s")
     for src in _build.SOURCES:
-        log = _build.library_path(src).with_suffix(".log")
-        if log.exists():
-            print(log.read_text().strip())
+        for part in _build.parts(src):
+            log = _build.library_path(src, part).with_suffix(".log")
+            if not log.exists():
+                continue
+            text = log.read_text().strip()
+            if part is None:
+                print(text)
+                continue
+            # a part holds dozens of instances: their largest numbers
+            regs = [int(v) for v in re.findall(r"Used (\d+) registers",
+                                               text)]
+            spills = [int(v) for v in re.findall(r"(\d+) bytes spill",
+                                                 text)]
+            print(f"ptxas {src} part {part}: {len(regs)} kernels, at most "
+                  f"{max(regs, default=0)} registers and "
+                  f"{max(spills, default=0)} bytes of spills")
 
     # -- phase 3: kernels vs plain versions ---------------------------------
     t0 = time.perf_counter()
@@ -1267,6 +1488,7 @@ def main():
     dense_vs_plain(fd, torch)
     rank_vs_plain(fr, torch)
     spline_gather_vs_plain(sg, torch)
+    gather_instances_vs_plain(sg, torch)
     prefilter_vs_plain(iir, torch)
     morph_vs_plain(fs, torch)
     fft_vs_plain(ff, torch)
@@ -1596,6 +1818,17 @@ def main():
         phase: order 0 exactly, else 1e-5 of max|x| (float32 data)."""
         return 0 if order == 0 else 1e-5 * float(x.abs().max())
 
+    def generic_ms(label, launch):
+        """The same call on the gather's generic instance (runtime orders,
+        64-bit unravel: the previous design), kernel time alone."""
+        real = sg.instance
+        sg.instance = lambda entry, *a, **k: sg.Instance(entry, 0, None)
+        try:
+            rows[label]["generic_kernel_ms"] = kernel_ms(
+                launch, "spline_gather_kernel")
+        finally:
+            sg.instance = real
+
     def affine_row(label, x, m, off, out_shape, orders, mode, lib_check):
         nd = x.ndim
         args = (x, m, off, out_shape, orders, mode, 0.0)
@@ -1618,7 +1851,8 @@ def main():
             gather_bound(x.numel(), int(np.prod(out_shape)), orders,
                          coord_ops=nd * (2 * nd + 1)),
             gather_atol(x, order), lib, lib_call, n_plain=3,
-            kernel="spline_gather_kernel")
+            kernel="fast_kernel")
+        generic_ms(label, lambda: sg.spline_affine(*args))
 
     def map_row(label, x, coords, order, mode):
         args = (x, coords, order, mode, 0.0)
@@ -1634,7 +1868,8 @@ def main():
             f"torch grid_sample {grid_modes[order]}, reflection, "
             "align_corners=True, grid built beforehand (not timed); "
             "another boundary rule and, for order 3, another cubic: "
-            "timed only", n_plain=3, kernel="spline_gather_kernel")
+            "timed only", n_plain=3, kernel="fast_kernel")
+        generic_ms(label, lambda: sg.spline_map(*args))
 
     zeros2 = np.zeros(2)
     for order in (0, 1, 3):
@@ -1668,6 +1903,14 @@ def main():
     # the spline prefilter on the fused separable kernel: one launch of
     # order 3's 37-tap FIR over both axes, against the recursion
     taps3 = iir.pole_taps(3)[0]
+    h3 = len(taps3) // 2
+    # the yardstick: one cuDNN convolution with the 37x37 outer product of
+    # the taps (TF32 off), on the input mirror-padded beforehand (not timed)
+    xp37 = boundary.pad(imgc, [(h3, h3)] * 2, "mirror")[None, None]
+    w37 = torch.tensor(np.outer(taps3, taps3), dtype=torch.float32,
+                       device="cuda")[None, None]
+    c_max = float(fs.fused_separable_correlate(
+        imgc, (taps3, taps3), (0, 0), ("mirror",) * 2, 0.0).abs().max())
     rows["spline_filter 4096^2 order 3 (37 taps)"] = time_row(
         "spline_filter 4096^2 order 3 (37 taps)",
         lambda: fs.fused_separable_correlate(
@@ -1676,8 +1919,12 @@ def main():
                                     3, 1, "mirror"),
         imgc, bound(imgc.numel(), flops=2 * 2 * len(taps3)),
         # as the prefilter phase: 1e-5 of the coefficients' max|c|
-        lambda c: 1e-5 * float(c.abs().max()), None, None,
+        lambda c: 1e-5 * float(c.abs().max()),
+        (lambda: F.conv2d(xp37, w37), 1e-4 * c_max),
+        "cuDNN conv2d with the 37x37 outer product of the taps, TF32 off, "
+        "on an input mirror-padded beforehand (pad not timed)",
         n_plain=2, kernel="fused_separable_f32_kernel")
+    del xp37
     torch.cuda.empty_cache()
 
     morph_rows(fs, boundary, torch, rows, xc3, imgc)

@@ -3,8 +3,11 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface (no PyTorch headers),
 so nvcc builds it in seconds.  The shared library goes to
 ``build/kernels/<name>-<hash>.so`` at the root of the checkout, at first
-use, where the hash covers the source and every shared header
-(``csrc/*.cuh``): a changed source or header gets a new file.  nvcc's
+use, where the hash covers the source, its flags and every shared header
+(``csrc/*.cuh``): a changed source or header gets a new file.  A source in
+``PARTS`` is compiled once per part (``<name>.<part>-<hash>.so``), each
+with its own define, so that its many template instances build in
+parallel.  nvcc's
 ``-Xptxas -v`` report (registers, shared memory, spills) is kept beside
 it as ``.log``.
 """
@@ -31,6 +34,10 @@ SOURCES = ("fused_separable", "fused_dense", "fused_rank", "spline_gather",
 # flags of one source only: the gather rounds every product and sum on its
 # own, as its plain PyTorch version does (no fused multiply-adds)
 EXTRA_FLAGS = {"spline_gather": ["-fmad=false"]}
+# sources compiled once per part (-D<macro>=<part>), one library each, all
+# parts in parallel: the gather's instances of one (data type, coordinate
+# type, components) each
+PARTS = {"spline_gather": ("SG_PART", 8)}
 
 
 def _nvcc():
@@ -41,26 +48,39 @@ def _nvcc():
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def library_path(name: str) -> Path:
+def _flags(name, part):
+    flags = list(EXTRA_FLAGS.get(name, ()))
+    if part is not None:
+        flags.append(f"-D{PARTS[name][0]}={part}")
+    return flags
+
+
+def parts(name):
+    """The parts ``name`` is compiled in: (None,) for a single library."""
+    return tuple(range(PARTS[name][1])) if name in PARTS else (None,)
+
+
+def library_path(name: str, part=None) -> Path:
     digest = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
-    digest.update(" ".join(EXTRA_FLAGS.get(name, ())).encode())
+    digest.update(" ".join(_flags(name, part)).encode())
     for header in sorted(SRC_DIR.glob("*.cuh")):
         digest.update(header.read_bytes())
-    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+    tag = name if part is None else f"{name}.{part}"
+    return BUILD_DIR / f"{tag}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names=SOURCES):
-    """Compile every library in ``names`` that is not built yet, one nvcc
-    process per source, all started together.  Raises with nvcc's output
-    if any fails."""
+    """Compile every library in ``names`` (every part of each) that is not
+    built yet, one nvcc process per library, all started together.
+    Raises with nvcc's output if any fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
-    for name in names:
-        so = library_path(name)
+    for name, part in [(n, p) for n in names for p in parts(n)]:
+        so = library_path(name, part)
         if so.exists():
             continue
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, *EXTRA_FLAGS.get(name, ()), "-o",
+        cmd = [_nvcc(), *NVCC_FLAGS, *_flags(name, part), "-o",
                str(tmp), str(SRC_DIR / f"{name}.cu")]
         procs.append((so, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -78,7 +98,8 @@ def build(names=SOURCES):
 
 
 @functools.cache
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+def load(name: str, part=None) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (of one part, for a source
+    in ``PARTS``), built first if needed."""
     build((name,))
-    return ctypes.CDLL(str(library_path(name)))
+    return ctypes.CDLL(str(library_path(name, part)))

@@ -9,7 +9,10 @@ A real float32 (or narrower) product on a CUDA tensor runs on the
 hand-written FFT kernel (``ops/fused_fft.py``) when the gate takes the
 padded sizes: over the last two axes (:func:`_fused_fft2_real_conv`) or the
 last axis (:func:`_fused_fft1_real_conv`), with at least
-``_FUSED_FFT_MIN_POINTS`` transform points.  Everything else takes
+``_FUSED_FFT_MIN_POINTS`` transform points.  Those routes read the
+operands unpadded (the kernel's loads read zeros past an axis' end) and
+store only the ``mode`` window of the result (the kernel's last passes
+crop).  Everything else takes
 ``torch.fft``: float64, complex, CPU tensors, other axes, sizes the gate
 declines.  The route is decided before any launch; a CUDA tensor inside
 the gate launches the kernel or raises.  The direct method's correlation
@@ -120,18 +123,28 @@ def _centered(arr, newshape):
     return arr[tuple(slice(s, s + int(n)) for s, n in zip(starts, newshape))]
 
 
-def _apply_conv_mode(ret, s1, s2, mode, axes):
+def _mode_window(shape, s1, s2, mode, axes):
+    """(start, length) per axis of the ``mode`` result inside the full
+    convolution of ``shape`` (scipy's ``_apply_conv_mode``: "same" centres
+    ``s1``, "valid" the overlap)."""
     if mode == "full":
-        return ret
-    if mode == "same":
-        return _centered(ret, s1)
-    if mode == "valid":
-        shape_valid = [
-            ret.shape[a] if a not in axes else s1[a] - s2[a] + 1
-            for a in range(ret.ndim)
-        ]
-        return _centered(ret, shape_valid)
-    raise ValueError("acceptable mode flags are 'valid', 'same', or 'full'")
+        new = list(shape)
+    elif mode == "same":
+        new = list(s1)
+    elif mode == "valid":
+        new = [shape[a] if a not in axes else s1[a] - s2[a] + 1
+               for a in range(len(shape))]
+    else:
+        raise ValueError("acceptable mode flags are 'valid', 'same', or "
+                         "'full'")
+    return [((int(c) - int(n)) // 2, int(n)) for c, n in zip(shape, new)]
+
+
+def _crop(x, window, dims):
+    """``x`` narrowed to ``window[d]`` on each dim ``d`` in ``dims``."""
+    for d in dims:
+        x = x.narrow(d, *window[d])
+    return x
 
 
 def _init_freq_conv_axes(in1, in2, mode, axes, sorted_axes=False):
@@ -223,21 +236,13 @@ def _fused_fft1_applies(in1, in2, axes, fshape):
 
 
 @functools.lru_cache(maxsize=16)
-def _dft_consts(n, m, device):
-    """(Er, Ei) float32 (n, m): E[k, t] = exp(-2j pi k t / n), a DFT
-    matrix restricted to the first m inputs, natural bin order."""
+def _dft_matrix(n, m, device):
+    """E (n, m) complex64: E[k, t] = exp(-2j pi k t / n), a DFT matrix
+    restricted to the first m inputs, natural bin order."""
     k = np.arange(n, dtype=np.float64)
     t = np.arange(m, dtype=np.float64)
-    ang = (-2.0 * np.pi / n) * np.outer(k, t)
-    return tuple(torch.from_numpy(v.astype(np.float32)).to(device)
-                 for v in (np.cos(ang), np.sin(ang)))
-
-
-def _pad_to(v, axes, fshape):
-    pads = [(0, 0)] * v.ndim
-    for a, n in zip(axes, fshape):
-        pads[a] = (0, int(n) - v.shape[a])
-    return _zero_pad(v.to(torch.float32), pads)
+    e = np.exp((-2j * np.pi / n) * np.outer(k, t)).astype(np.complex64)
+    return torch.from_numpy(e).to(device)
 
 
 def _product_inverse(f1, f2, inverse):
@@ -252,47 +257,45 @@ def _product_inverse(f1, f2, inverse):
     return inverse(f1, f2)
 
 
-def _fused_fft2_real_conv(in1, in2, axes, fshape):
+def _fused_fft2_real_conv(in1, in2, axes, fshape, window=None):
     """Real convolution over the last two axes on the FFT kernel: two
-    forward passes per operand (a direct DFT product for a small second
-    operand), the spectrum product folded into the inverse's first pass,
-    1/(n0*n1) and the real part into its second."""
+    forward passes per operand, each reading its operand unpadded (a
+    direct DFT product for a small second operand), the spectrum product
+    folded into the inverse's first pass, 1/(n0*n1) and the real part
+    into its second, and each inverse pass storing only ``window``
+    (``((start0, length0), (start1, length1))``, default the whole
+    ``fshape``)."""
     n0, n1 = (int(s) for s in fshape)
-    last2 = (in1.ndim - 2, in1.ndim - 1)
     m = tuple(int(s) for s in in2.shape[-2:])
-    f1 = fused_fft.fft2(_pad_to(in1, last2, fshape))
+    f1 = fused_fft.fft2(in1.to(torch.float32), s=(n0, n1))
     if max(m) <= _SMALL_DFT_MAX and (m[0] < n0 or m[1] < n1):
-        e0r, e0i = _dft_consts(n0, m[0], str(in2.device))
-        e1r, e1i = _dft_consts(n1, m[1], str(in2.device))
-        b = in2.to(torch.float32)
+        e0 = _dft_matrix(n0, m[0], str(in2.device))
+        e1 = _dft_matrix(n1, m[1], str(in2.device))
         with _no_tf32():
-            t0r, t0i = e0r @ b, e0i @ b
-            kr = t0r @ e1r.T - t0i @ e1i.T
-            ki = t0r @ e1i.T + t0i @ e1r.T
-        f2 = torch.complex(kr, ki)
+            f2 = (e0 @ in2.to(torch.complex64)) @ e1.T
     else:
-        f2 = fused_fft.fft2(_pad_to(in2, last2, fshape))
+        f2 = fused_fft.fft2(in2.to(torch.float32), s=(n0, n1))
     return _product_inverse(f1, f2, lambda x, mul: fused_fft.fft2(
-        x, inverse=True, real_out=True, mul=mul))
+        x, inverse=True, real_out=True, mul=mul, window=window))
 
 
-def _fused_fft1_real_conv(in1, in2, axes, fshape):
-    """Real last-axis convolution on the kernel's rows entry: the product
-    folded into the inverse pass; a short second operand is transformed
-    by one direct DFT product."""
+def _fused_fft1_real_conv(in1, in2, axes, fshape, window=None):
+    """Real last-axis convolution on the kernel's rows entry: each forward
+    pass reads its operand unpadded, the product folded into the inverse
+    pass, which stores only ``window`` (``(start, length)``, default the
+    whole ``fshape``); a short second operand is transformed by one
+    direct DFT product."""
     n = int(fshape[0])
-    last = (in1.ndim - 1,)
     m = int(in2.shape[-1])
-    f1 = fused_fft.fft_axis(_pad_to(in1, last, fshape), -1)
+    f1 = fused_fft.fft_axis(in1.to(torch.float32), -1, n=n)
     if m <= _SMALL_DFT_MAX and m < n:
-        er, ei = _dft_consts(n, m, str(in2.device))
-        b = in2.to(torch.float32)
+        e = _dft_matrix(n, m, str(in2.device))
         with _no_tf32():
-            f2 = torch.complex(b @ er.T, b @ ei.T)
+            f2 = in2.to(torch.complex64) @ e.T
     else:
-        f2 = fused_fft.fft_axis(_pad_to(in2, last, fshape), -1)
+        f2 = fused_fft.fft_axis(in2.to(torch.float32), -1, n=n)
     return _product_inverse(f1, f2, lambda x, mul: fused_fft.fft_axis(
-        x, -1, inverse=True, real_out=True, mul=mul))
+        x, -1, inverse=True, real_out=True, mul=mul, window=window))
 
 
 def _transform_dtype(t):
@@ -305,33 +308,40 @@ def _transform_dtype(t):
     return t.to(torch.float64)
 
 
-def _freq_domain_conv(in1, in2, axes, shape, calc_fast_len=False):
-    """Multiply the spectra of ``in1`` and ``in2`` along ``axes``."""
+def _freq_domain_conv(in1, in2, axes, shape, calc_fast_len=False,
+                      window=None):
+    """Multiply the spectra of ``in1`` and ``in2`` along ``axes``; the
+    result's ``window`` (one (start, length) per axis; default the whole
+    ``shape``).  The kernel's routes store only the window of ``axes``."""
+    if window is None:
+        window = [(0, int(s)) for s in shape]
     if not len(axes):
-        return in1 * in2
+        return _crop(in1 * in2, window, range(len(shape)))
     complex_result = in1.is_complex() or in2.is_complex()
     if calc_fast_len:
         fshape = [next_fast_len(shape[a]) for a in axes]
     else:
         fshape = [shape[a] for a in axes]
+    rest = [d for d in range(len(shape)) if d not in axes]
     if not complex_result and _fused_fft2_applies(in1, in2, axes, fshape):
-        ret = _fused_fft2_real_conv(in1, in2, axes, fshape)
-    elif not complex_result and _fused_fft1_applies(in1, in2, axes, fshape):
-        ret = _fused_fft1_real_conv(in1, in2, axes, fshape)
+        nd = in1.ndim
+        ret = _fused_fft2_real_conv(in1, in2, axes, fshape,
+                                    (window[nd - 2], window[nd - 1]))
+        return _crop(ret, window, rest)
+    if not complex_result and _fused_fft1_applies(in1, in2, axes, fshape):
+        ret = _fused_fft1_real_conv(in1, in2, axes, fshape,
+                                    window[in1.ndim - 1])
+        return _crop(ret, window, rest)
+    in1, in2 = _transform_dtype(in1), _transform_dtype(in2)
+    if not complex_result:
+        sp1 = torch.fft.rfftn(in1, fshape, dim=axes)
+        sp2 = torch.fft.rfftn(in2, fshape, dim=axes)
+        ret = torch.fft.irfftn(sp1 * sp2, fshape, dim=axes)
     else:
-        in1, in2 = _transform_dtype(in1), _transform_dtype(in2)
-        if not complex_result:
-            sp1 = torch.fft.rfftn(in1, fshape, dim=axes)
-            sp2 = torch.fft.rfftn(in2, fshape, dim=axes)
-            ret = torch.fft.irfftn(sp1 * sp2, fshape, dim=axes)
-        else:
-            sp1 = torch.fft.fftn(in1, fshape, dim=axes)
-            sp2 = torch.fft.fftn(in2, fshape, dim=axes)
-            ret = torch.fft.ifftn(sp1 * sp2, dim=axes)
-    sl = [slice(None)] * ret.ndim
-    for a in axes:
-        sl[a] = slice(0, shape[a])
-    return ret[tuple(sl)]
+        sp1 = torch.fft.fftn(in1, fshape, dim=axes)
+        sp2 = torch.fft.fftn(in2, fshape, dim=axes)
+        ret = torch.fft.ifftn(sp1 * sp2, dim=axes)
+    return _crop(ret, window, range(len(shape)))
 
 
 def _empty_result(in1, in2):
@@ -353,8 +363,8 @@ def fftconvolve(in1, in2, mode="full", axes=None):
         max(s1[i], s2[i]) if i not in axes else s1[i] + s2[i] - 1
         for i in range(in1.ndim)
     ]
-    ret = _freq_domain_conv(in1, in2, axes, shape, calc_fast_len=True)
-    return _apply_conv_mode(ret, s1, s2, mode, axes)
+    return _freq_domain_conv(in1, in2, axes, shape, calc_fast_len=True,
+                             window=_mode_window(shape, s1, s2, mode, axes))
 
 
 def oaconvolve(in1, in2, mode="full", axes=None):
@@ -433,7 +443,8 @@ def oaconvolve(in1, in2, mode="full", axes=None):
     zpad[a] = (step, 0)
     tail_ext = _zero_pad(tail.reshape(flat_shape), zpad)
     full = (main_ext + tail_ext).narrow(a, 0, n_long + L - 1)
-    return _apply_conv_mode(full, s1, s2, mode, axes)
+    return _crop(full, _mode_window(full.shape, s1, s2, mode, axes),
+                 range(full.ndim))
 
 
 # ---------------------------------------------------------------------------

@@ -86,19 +86,137 @@ def test_gate_bounds():
     assert ff.smem_bytes(14400, 1) <= ff.SMEM_LIMIT < ff.smem_bytes(14580, 1)
 
 
-@pytest.mark.parametrize("n,entry,count,tile", [
-    (4320, "strided", 4320, 3),   # 3 complex64 columns: 207,360 bytes
-    (4320, "rows", 4320, 1),
-    (1215, "rows", 4374, 1),      # the 257-tap overlap-add block
-    (1215, "strided", 100, 11),
-    (384, "rows", 3, 3),
-    (384, "strided", 2, 2),
-    (14400, "strided", 50, 1),
+@pytest.mark.parametrize("n,entry,count,tile,launches", [
+    (4320, "strided", 4320, 16, 2),   # 60 x 72 four-step, 16 columns
+    (4320, "rows", 4320, 1, 1),
+    (1215, "rows", 4374, 1, 1),       # the 257-tap overlap-add block
+    (1215, "strided", 100, 16, 2),
+    (384, "rows", 3, 3, 1),
+    (384, "strided", 2, 2, 2),
+    (14400, "strided", 50, 16, 2),
 ])
-def test_plan(n, entry, count, tile):
+def test_plan(n, entry, count, tile, launches):
     p = ff.plan(n, entry, count)
-    assert p.tile == tile and p.smem == ff.smem_bytes(n, tile)
-    assert p.smem <= ff.SMEM_LIMIT and p.threads in (256, 512)
+    assert p.tile == tile and p.launches == launches
+    assert p.smem <= ff.SMEM_LIMIT
+    if entry == "rows":
+        assert p.smem == ff.smem_bytes(n, tile)
+    for step in p.steps:
+        assert step.block[0] * step.block[1] <= ff.MAX_THREADS
+
+
+def _smooth_sizes():
+    return [n for n in range(257, 14401) if ff.factorize(n)]
+
+
+def test_plan_for_every_admitted_size():
+    """Every 5-smooth n in (256, 14400]: the passes multiply to the
+    sequence, radices within 2..32, at most three passes a row (two
+    shared-memory exchanges), a strided step at most two; shared bytes
+    within 227 KB; a strided tile reads row segments of at least 64
+    bytes; at most 512 threads a block.  n = 4320 runs three passes a
+    row and 2 + 2 for the strided entry's steps."""
+    for n in _smooth_sizes():
+        assert ff.supports(n)
+        rows, strided = ff.plan(n, "rows", 4096), ff.plan(n, "strided", 4096)
+        (row,) = rows.steps
+        assert row.m == n and int(np.prod(row.radices)) == n
+        assert row.block[0] * row.block[1] <= ff.rows_thread_cap(
+            row.radices)
+        assert len(row.radices) <= 3
+        n1, n2 = (s.m for s in strided.steps)
+        assert n1 * n2 == n and n1 <= n2 == ff.split(n)[1]
+        for step in rows.steps + strided.steps:
+            assert int(np.prod(step.radices)) == step.m
+            assert all(2 <= r <= ff.MAX_RADIX for r in step.radices)
+            assert step.smem <= ff.SMEM_LIMIT
+            assert step.block[0] * step.block[1] <= ff.MAX_THREADS
+        assert all(len(s.radices) <= 2 for s in strided.steps)
+        assert strided.tile >= ff.STRIDED_TILE
+        assert strided.segment_bytes >= 64 and rows.segment_bytes >= 64
+    assert [len(ff.plan(4320, "rows", 1).steps[0].radices)] == [3]
+    assert [len(s.radices) for s in ff.plan(4320, "strided", 8).steps] == [
+        2, 2]
+
+
+def _np_passes(z, m, radices):
+    """numpy model of the kernel's Stockham passes on the last axis: pass
+    of radix r, butterfly j reads j + r'*m/r, twiddles w_m^(r'*k*m/(ns*r))
+    with k = j % ns, an r-point DFT, output r' to (j - k)*r + k + r'*ns."""
+    ns = 1
+    for r in radices:
+        nb = m // r
+        v = z.reshape(*z.shape[:-1], r, nb)
+        j = np.arange(nb)
+        k = j % ns
+        e = np.arange(r)[:, None] * k[None, :] * (m // (ns * r))
+        y = np.fft.fft(v * np.exp(-2j * np.pi * e / m), axis=-2)
+        dest = ((j - k) * r + k)[None, :] + np.arange(r)[:, None] * ns
+        out = np.empty_like(z)
+        out[..., dest.reshape(-1)] = y.reshape(*z.shape[:-1], m)
+        z = out
+        ns *= r
+    return z
+
+
+def _np_four_step(x, n):
+    """numpy model of the strided entry on (n, C): n1-point passes over
+    j1 of the (n1, n2, C) view, the twiddle w_n^(j2*k1), n2-point passes
+    over j2, output row k1 + n1*k2."""
+    n1, n2 = ff.split(n)
+    v = x.reshape(n1, n2, -1).transpose(1, 2, 0)         # [j2, c, j1]
+    v = _np_passes(v, n1, ff.passes(n1))                 # [j2, c, k1]
+    v = v * np.exp(-2j * np.pi * np.arange(n2)[:, None, None]
+                   * np.arange(n1)[None, None, :] / n)
+    v = _np_passes(v.transpose(2, 1, 0), n2, ff.passes(n2))  # [k1, c, k2]
+    return v.transpose(2, 0, 1).reshape(n, -1)           # row k1 + n1*k2
+
+
+def test_pass_decomposition_against_numpy():
+    """The plan's passes (rows) and four-step split (strided), modelled in
+    numpy float64, equal numpy.fft for every admitted size."""
+    rng = np.random.default_rng(0)
+    for n in _smooth_sizes():
+        x = rng.standard_normal((n, 2)) + 1j * rng.standard_normal((n, 2))
+        ref = np.fft.fft(x, axis=0)
+        tol = 1e-9 * np.abs(ref).max()
+        got = _np_passes(x.T.copy(), n, ff.passes(n)).T
+        assert np.abs(got - ref).max() <= tol, n
+        assert np.abs(_np_four_step(x, n) - ref).max() <= tol, n
+
+
+@pytest.mark.parametrize("mode", ["full", "same", "valid"])
+@pytest.mark.parametrize("s1,s2", [((37, 52), (9, 14)), ((40, 33), (12, 7)),
+                                   ((31, 31), (31, 31))])
+def test_folded_pad_and_crop_match_zero_pad_and_slice(mode, s1, s2):
+    """The 2-D and 1-D routes, reading unpadded operands and storing only
+    the ``mode`` window (:func:`_mode_window`; the plain version of the
+    kernel's folded loads and stores), equal ``_zero_pad`` to the
+    transform size, the full product and a slice, and scipy."""
+    rng = np.random.default_rng(len(mode) + s1[0])
+    a = torch.from_numpy(rng.standard_normal(s1).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal(s2).astype(np.float32))
+    shape = [x + y - 1 for x, y in zip(s1, s2)]
+    win = sig._mode_window(shape, s1, s2, mode, [0, 1])
+    fshape = (320, 300)
+    pads = [(0, n - s) for n, s in zip(fshape, s1)]
+    ref2 = sig._fused_fft2_real_conv(sig._zero_pad(a, pads), b, [0, 1],
+                                     fshape)
+    got2 = sig._fused_fft2_real_conv(a, b, [0, 1], fshape, win)
+    want = sig._crop(ref2, win, [0, 1])
+    assert got2.shape == want.shape
+    np.testing.assert_allclose(got2.numpy(), want.numpy(),
+                               atol=5e-5 * float(want.abs().max()))
+    np.testing.assert_allclose(got2.numpy(), ss.fftconvolve(a, b, mode),
+                               atol=5e-4 * float(want.abs().max()))
+    # the 1-D route, an odd window start
+    w1 = (win[1][0] + 1, win[1][1] - 1)
+    ref1 = sig._fused_fft1_real_conv(sig._zero_pad(a, [(0, 0), pads[1]]),
+                                     b[:1], [1], fshape[1:])
+    got1 = sig._fused_fft1_real_conv(a, b[:1], [1], fshape[1:], w1)
+    np.testing.assert_allclose(got1.numpy(),
+                               ref1.narrow(1, *w1).numpy(),
+                               atol=5e-5 * float(ref1.abs().max()))
 
 
 # ---------------------------------------------------------------------------
@@ -177,6 +295,12 @@ def test_kernel_source_contract():
     assert 'extern "C" int fft_rows(' in text
     assert 'extern "C" int fft_strided(' in text
     assert "r * k * stride" in text and "(j - k) * R + k" in text
+    # the planner's thread caps are the kernel's launch bounds
+    assert "constexpr int kMaxThreads = 512;" in text
+    assert "return bucket <= 20 ? 320 : kMaxThreads;" in text
+    assert ff.MAX_THREADS == 512 and ff.ROWS_THREADS == 320
+    assert ff.rows_thread_cap((18, 16, 15)) == 320
+    assert ff.rows_thread_cap((32, 16, 16)) == 512
     for banned in ("cufft", "cublas", "torch/"):
         assert banned not in text.lower()
 
@@ -311,11 +435,11 @@ def test_public_routes_launch_the_kernel(cuda, monkeypatch):
     k = torch.from_numpy(rng.random((13, 31), dtype=np.float32)).cuda()
     a1 = torch.from_numpy(rng.random(6000, dtype=np.float32)).cuda()
     h1 = torch.from_numpy(rng.random(257, dtype=np.float32)).cuda()
-    cases = [  # (call, rows launches, strided launches)
-        (lambda: tsig.fftconvolve(a, k, "same"), 2, 2),
-        (lambda: tsig.convolve(a, k, "same", method="fft"), 2, 2),
-        (lambda: tsig.correlate(a, k, "same", method="fft"), 2, 2),
-        (lambda: tsig.fftconvolve(a, torch.flip(a, (0,)), "same"), 3, 3),
+    cases = [  # (call, rows launches, strided launches: two steps each)
+        (lambda: tsig.fftconvolve(a, k, "same"), 2, 4),
+        (lambda: tsig.convolve(a, k, "same", method="fft"), 2, 4),
+        (lambda: tsig.correlate(a, k, "same", method="fft"), 2, 4),
+        (lambda: tsig.fftconvolve(a, torch.flip(a, (0,)), "same"), 3, 6),
         (lambda: tsig.oaconvolve(a1, h1, "same"), 3, 0),
     ]
     for call, rows, strided in cases:

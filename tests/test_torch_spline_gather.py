@@ -165,18 +165,137 @@ def test_kernel_source_contract(monkeypatch):
              "GridConstant": "grid-constant"}
     assert {names[k]: int(v) for k, v in codes.items()} == sg._MODE_CODES
 
-    class Lib:  # stands in for the built library: no nvcc here
-        spline_affine = type("Fn", (), {})()
-        spline_map = type("Fn", (), {})()
+    entries = ("spline_affine", "spline_map", "spline_affine_fast",
+               "spline_map_fast")
 
-    monkeypatch.setattr(_build, "load", lambda name: Lib)
-    lib = sg._library()
-    for entry in ("spline_affine", "spline_map"):
+    class Lib:  # stands in for the built library: no nvcc here
+        pass
+
+    for entry in entries:
+        setattr(Lib, entry, type("Fn", (), {})())
+    monkeypatch.setattr(_build, "load", lambda name, part=None: Lib)
+    lib = sg._library(0)
+    for entry in entries:
         m = re.search(r'extern "C" int ' + entry + r"\(([^)]*)\)", src)
         assert len(m.group(1).split(",")) == len(
             getattr(lib, entry).argtypes)
     assert "spline_gather" in _build.SOURCES
     assert "-fmad=false" in _build.EXTRA_FLAGS["spline_gather"]
+
+
+def _source_patterns(src, macro):
+    """The order patterns listed in the kernel's ``#define macro(X)``."""
+    body = re.search(r"#define " + macro + r"\(X\)(.*?)(?<!\\)\n", src,
+                     re.S).group(1)
+    pats = [tuple(int(v) for v in m.split(","))
+            for m in re.findall(r"\bX\(([\d, ]+)\)", body)]
+    for sub in re.findall(r"(SG_\w+_PATTERNS)\(X\)", body):
+        pats += _source_patterns(src, sub)
+    return pats
+
+
+def test_instance_patterns_match_the_kernel_source():
+    """The host's pattern table is the list of instances the kernel
+    compiles, without repeats, and the part code is the kernel's."""
+    src = (REPO / "cupyimg_tpu_torch/csrc/spline_gather.cu").read_text()
+    for macro, table in (("SG_AFFINE_PATTERNS", sg.AFFINE_PATTERNS),
+                         ("SG_MAP_PATTERNS", sg.MAP_PATTERNS)):
+        pats = _source_patterns(src, macro)
+        assert len(pats) == len(set(pats)) == len(table)
+        assert set(pats) == set(table)
+    assert "(SG_PART >> 2) & 1;  // 0 float32, 1 float64" in src
+    assert "kPartC = (SG_PART >> 1) & 1;" in src
+    assert "kPartNC = (SG_PART & 1) + 1;" in src
+    assert _build.PARTS["spline_gather"] == ("SG_PART", 8)
+    assert sg.pattern_key((0, 3, 3)) == 3033 and sg.pattern_key((5,)) == 15
+
+
+def _public_call_combinations(monkeypatch):
+    """Every (entry, orders, dtype, coordinate dtype) that the public
+    interpolation calls hand the kernel: each call runs on the CPU with
+    the gather replaced by a recorder (no interpolation is computed)."""
+    import cupyimg_tpu_torch.scipy.ndimage as tndi
+    from cupyimg_tpu_torch.core.config import config
+
+    seen = []
+
+    def affine(x, matrix, offset, output_shape, order, mode, cval=0.0,
+               coord_dtype=torch.float64, pre=None):
+        orders = sg._orders(order, x.ndim)
+        seen.append(("affine", tuple(orders), x.dtype, coord_dtype, mode,
+                     len(output_shape)))
+        return torch.zeros(tuple(output_shape), dtype=x.dtype)
+
+    def map_(x, coords, order, mode, cval=0.0):
+        seen.append(("map", tuple(sg._orders(order, x.ndim)), x.dtype,
+                     coords.dtype, mode, x.ndim))
+        return torch.zeros(tuple(coords.shape[1:]), dtype=x.dtype)
+
+    monkeypatch.setattr(sg, "spline_affine", affine)
+    monkeypatch.setattr(sg, "spline_map", map_)
+    modes = MODES + ("opencv",)
+    i = 0
+    for ndim in (1, 2, 3):
+        shape = (5, 6, 4)[:ndim]
+        for dtype in (torch.uint8, torch.float32, torch.float64,
+                      torch.complex64, torch.complex128):
+            x = torch.ones(shape, dtype=dtype)
+            for order in range(6):
+                for allow32, precision in ((True, "auto"), (True, "f32"),
+                                           (False, "auto")):
+                    monkeypatch.setattr(config, "coord_precision", precision)
+                    mode = modes[i % len(modes)]
+                    i += 1
+                    kw = dict(order=order, mode=mode, prefilter=False,
+                              allow_float32=allow32)
+                    tndi.affine_transform(x, np.eye(ndim) * 0.9, **kw)
+                    tndi.shift(x, 0.5, **kw)
+                    tndi.zoom(x, 1.5, **kw)
+                    tndi.zoom(x, 1.5, grid_mode=True, **kw)
+                    for cdt in (torch.float32, torch.float64):
+                        c = torch.zeros((ndim, 3, 2), dtype=cdt)
+                        tndi.map_coordinates(x, c, **kw)
+                    planes = {1: [], 2: [(0, 1)], 3: [(0, 1), (0, 2), (1, 2)]}
+                    for axes in planes[ndim]:
+                        tndi.rotate(x, 30, axes=axes, **kw)
+    return seen
+
+
+@pytest.mark.filterwarnings("ignore:It is recommended")
+def test_instance_table_covers_every_public_call(monkeypatch):
+    """Every combination the public calls produce (ndim 1-3, per-axis
+    orders, every mode, data and coordinate dtypes, real or complex) is
+    served by exactly one fast instance, and no two combinations that
+    differ in dtype, coordinate dtype, components or orders share one;
+    every instance of the table serves some call."""
+    seen = _public_call_combinations(monkeypatch)
+    served = {}
+    modes = set()
+    for entry, orders, dtype, cdtype, mode, out_ndim in seen:
+        inst = sg.instance(entry, orders, dtype, cdtype, 100, 100, out_ndim)
+        assert inst.key is not None, (entry, orders, dtype, cdtype)
+        combo = (entry, orders, dtype, cdtype)
+        assert served.setdefault(combo, inst) == inst
+        modes.add(mode)
+    assert len(set(served.values())) == len(served)
+    assert modes >= set(MODES)
+    table = {(e, p, k) for e, pats in (("affine", sg.AFFINE_PATTERNS),
+                                       ("map", sg.MAP_PATTERNS))
+             for p in range(8) for k in map(sg.pattern_key, pats)}
+    assert {(i.entry, i.part, i.key) for i in served.values()} == table
+
+
+def test_generic_instance_takes_the_rest():
+    """Mixed orders, a 2-D rotate-like pattern and 2^31 elements go to the
+    generic instance (part 0)."""
+    f32, f64 = torch.float32, torch.float64
+    for args in (("affine", (1, 3), f32, f64, 10, 10),
+                 ("affine", (0, 3), f32, f64, 10, 10),
+                 ("map", (0, 1, 1), f32, f32, 10, 10),
+                 ("affine", (1, 1), f32, f64, 2 ** 31, 10),
+                 ("map", (1, 1), f32, f32, 10, 2 ** 30)):
+        assert sg.instance(*args) == sg.Instance(args[0], 0, None)
+    assert sg.instance("affine", (1, 1), f32, f64, 10, 10, 3).key is None
 
 
 def test_wrapper_checks_its_input():
