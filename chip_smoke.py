@@ -11,7 +11,9 @@ Phases, each fatal on failure (a traceback and a non-zero exit):
 3. hold each kernel against its plain PyTorch version on the card:
    the fused separable correlation over every boundary mode, origins,
    skipped axes, short axes and 4..64 taps (tolerance from the taps);
-   its min/max op, the rank kernel (exact, NaN included) and the dense
+   its min/max op on both of its paths (planes; rows for a 2-D array),
+   the rank kernel (exact, NaN included; each of its compile-time
+   instances once, and the generic instance) and the dense
    kernel (1e-5 * sum|w| * max|x|) over every mode, origins at both ends,
    short axes and the most extended footprints their gates admit; the
    spline gather (both entries, orders 0-5, every mode, float32/float64
@@ -58,7 +60,14 @@ Phases, each fatal on failure (a traceback and a non-zero exit):
    warm-up), printed as one ``{"cases": ...}`` and one ``{"kernels":
    ...}`` JSON line, with each kernel's bound and a PyTorch yardstick
    (cuFFT for the FFT kernel's passes, cuDNN conv2d for the 37-tap
-   prefilter), the end-to-end fftconvolve
+   prefilter, and beside the dense cuDNN convolution of each separable
+   correlation a composite of one 1-D cuDNN convolution per filtered
+   axis), every main-path launch of the separable correlation timed
+   (the prefilter's poles: order 3's 37 taps on 4096^2 and 2048^2,
+   order 5's 57 and 17 taps on 4096^2), each rank row beside the same
+   call on the generic instance (``generic_kernel_ms``), each kernel's
+   ``loss_ms`` (the sum over its main-path launches of kernel_ms -
+   bound_ms), the end-to-end fftconvolve
    against torch.fft, and the direct and fft times of the main-path
    convolutions.
 
@@ -110,16 +119,21 @@ def kernel_ms(launch, kernel, n=20, per_call=1):
     """Device time of the launches of the CUDA kernel named ``kernel``
     in one call of ``launch`` (``per_call`` of them), from torch.profiler
     over ``n`` calls: the wrapper's host work (planning, argument checks)
-    is left out.  None when the profiler records no such kernel.  The
-    profiler can lose kernel records (a run of 20 calls once came back
-    with 16): such a run is profiled again, up to three times; more
-    records than launches fail."""
+    is left out.  The profiler can lose kernel records (a run of 20
+    calls once came back with 16, another with none): such a run is
+    profiled again, up to four times; more records than launches fail.
+    Where every try comes back short, the mean of the most records a try
+    got, per launch, times ``per_call`` stands in, and where no try
+    recorded any, the call's CUDA-event time (``ms``, host work
+    included); each is printed as such."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     launch()
     torch.cuda.synchronize()
-    for attempt in range(3):
+    want = n * per_call
+    best = (0.0, 0)
+    for attempt in range(4):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
@@ -131,16 +145,22 @@ def kernel_ms(launch, kernel, n=20, per_call=1):
                 total_us += getattr(ev, "device_time_total",
                                     getattr(ev, "cuda_time_total", 0.0))
                 count += ev.count
-        if count == 0:
-            return None
-        want = n * per_call
         check(count <= want, f"{kernel}: {count} launches profiled, not "
                              f"{want}")
         if count == want:
             return total_us / n / 1e3
         print(f"{kernel}: the profiler recorded {count} of {want} launches; "
               "profiling again")
-    check(False, f"{kernel}: {count} launches profiled, not {want}")
+        if count > best[1]:
+            best = (total_us, count)
+    total_us, count = best
+    if count:
+        print(f"{kernel}: kernel_ms from the mean of {count} recorded "
+              "launches")
+        return total_us / count * per_call / 1e3
+    print(f"{kernel}: no launch recorded; kernel_ms from CUDA events "
+          "around the call")
+    return median_ms(launch)
 
 
 def bound(numel, flops=0.0, minmax_ops=0.0):
@@ -207,6 +227,62 @@ def least_ces(footprint, rank):
     return (len(sn.batcher_network(w2))
             + len(sn.merge_runs_full_network(w2, w1)[0])
             + len(sn.presorted_rank_network(w1 * w2, w0, rank)[0]))
+
+
+def ptxas_entries(text):
+    """(kernel name, registers, spill store bytes, spill load bytes, stack
+    bytes) of each entry function in an ``-Xptxas -v`` report."""
+    out = []
+    for f in re.split(r"ptxas info\s+: Compiling entry function", text)[1:]:
+        name = f.split("'")[1]
+        regs = re.findall(r"Used (\d+) registers", f)
+        spill = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                           r"loads", f)
+        stack = re.findall(r"(\d+) bytes stack frame", f)
+        out.append((name, int(regs[0]) if regs else 0,
+                    int(spill[0][0]) if spill else 0,
+                    int(spill[0][1]) if spill else 0,
+                    int(stack[0]) if stack else 0))
+    return out
+
+
+def ptxas_lines(_build, fr):
+    """The register and spill lines of the rank kernel's main-path
+    instances (each must show no spill and no stack) and of the separable
+    kernel's two paths."""
+    main = {  # label: (dtype code, footprint as (F0, F1, F2), mask, rank)
+        "median 5x5": ("f", (5, 1, 5), (1 << 25) - 1, 12),
+        "percentile 30 5x5": ("f", (5, 1, 5), (1 << 25) - 1, 7),
+        "median 3x3x3": ("f", (3, 3, 3), (1 << 27) - 1, 13),
+        "rank 2 cross int32": ("i", (3, 1, 3), 0xba, 2),
+    }
+    entries = []
+    for part in _build.parts("fused_rank"):
+        log = _build.library_path("fused_rank", part).with_suffix(".log")
+        entries += ptxas_entries(log.read_text())
+    for label, (t, (f0, f1, f2), mask, rank) in main.items():
+        key = (f"rank_instance_kernelI{t}Li{f0}ELi{f1}ELi{f2}ELm{mask}"
+               f"ELi{rank}E")
+        hit = [e for e in entries if key in e[0]]
+        check(len(hit) == 1, f"ptxas: no single entry for {label}")
+        _, regs, st, ld, stack = hit[0]
+        print(f"ptxas B3 instance {label}: {regs} registers, {st} bytes "
+              f"spill stores, {ld} bytes spill loads, {stack} bytes stack")
+        check(st == ld == stack == 0, f"ptxas: {label} uses local memory")
+    inst = [e for e in entries if "rank_instance_kernel" in e[0]]
+    print(f"ptxas B3 instances: {len(inst)} kernels, at most "
+          f"{max(e[1] for e in inst)} registers, "
+          f"{sum(1 for e in inst if e[2] or e[4])} with spills or stack")
+    log = _build.library_path("fused_separable").with_suffix(".log")
+    for name, regs, st, ld, stack in ptxas_entries(log.read_text()):
+        for kernel, path in (("fused_separable_f32_kernel", "planes"),
+                             ("rows_f32_kernel", "rows")):
+            if kernel in name:
+                op = ("corr", "min", "max")[int(re.search(
+                    kernel + r"ILi(\d)E", name).group(1))]
+                print(f"ptxas B1 {path} path {op}: {regs} registers, {st} "
+                      f"bytes spill stores, {ld} bytes spill loads, {stack} "
+                      "bytes stack")
 
 
 # ---------------------------------------------------------------------------
@@ -488,6 +564,38 @@ def rank_vs_plain(fr, torch):
               + (f" nan {int(ref.isnan().sum())}" if name.startswith("nan")
                  else ""))
         check(ok, f"rank {name}: kernel differs from its plain version")
+
+
+def rank_instances_vs_plain(fr, torch):
+    """Each compile-time instance of the rank kernel once in each type
+    it is built for (float32 with NaN, int32), against the plain
+    version: exact."""
+    rng = np.random.RandomState(11)
+    for i, (f3, mask, rank) in enumerate(fr.INSTANCES):
+        nd = 3 if f3[1] > 1 else 2
+        fshape = f3 if nd == 3 else (f3[0], f3[2])
+        fp = np.array([(mask >> b) & 1 for b in range(int(np.prod(fshape)))],
+                      bool).reshape(fshape)
+        shape = (37, 45, 70) if nd == 3 else (300, 517)
+        for tdt in fr.INSTANCE_TYPES[i]:
+            dt = np.float32 if tdt == torch.float32 else np.int32
+            check(fr.instance(fp, rank, tdt).id == i,
+                  f"instance {i} not picked")
+            if dt == np.int32:
+                xh = rng.randint(-99, 99, shape).astype(np.int32)
+            else:
+                xh = rng.randn(*shape).astype(np.float32)
+                xh[rng.rand(*shape) < 0.01] = np.nan
+            x = torch.from_numpy(xh).cuda()
+            mode = MODES[i % len(MODES)]
+            got = fr.fused_rank_filter(x, fp, (0,) * nd, rank, mode, 1.5)
+            ref = fr.fused_rank_filter_ref(x, fp, (0,) * nd, rank, mode, 1.5)
+            torch.cuda.synchronize()
+            check(same(got, ref), f"rank instance {i} {f3} rank {rank} "
+                                  f"{dt.__name__}: differs from plain")
+    print(f"kernel-vs-plain rank: {len(fr.INSTANCES)} compile-time instances"
+          f" ({sum(map(len, fr.INSTANCE_TYPES))} with their types) exact "
+          "(float32 with NaN, int32)")
 
 
 def knife_coords(shape, out_shape, rng, dtype):
@@ -1460,8 +1568,10 @@ def main():
 
     # -- phase 2: build ---------------------------------------------------
     t0 = time.perf_counter()
-    _build.build()
+    seconds = _build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s")
+    for lib, sec in sorted(seconds.items(), key=lambda kv: kv[1]):
+        print(f"build: {lib} done at {sec:.1f} s")
     for src in _build.SOURCES:
         for part in _build.parts(src):
             log = _build.library_path(src, part).with_suffix(".log")
@@ -1479,6 +1589,7 @@ def main():
             print(f"ptxas {src} part {part}: {len(regs)} kernels, at most "
                   f"{max(regs, default=0)} registers and "
                   f"{max(spills, default=0)} bytes of spills")
+    ptxas_lines(_build, fr)
 
     # -- phase 3: kernels vs plain versions ---------------------------------
     t0 = time.perf_counter()
@@ -1487,6 +1598,7 @@ def main():
     minmax_vs_plain(fs, torch)
     dense_vs_plain(fd, torch)
     rank_vs_plain(fr, torch)
+    rank_instances_vs_plain(fr, torch)
     spline_gather_vs_plain(sg, torch)
     gather_instances_vs_plain(sg, torch)
     prefilter_vs_plain(iir, torch)
@@ -1693,30 +1805,74 @@ def main():
     sobel_w = (s3, s3, d3)  # sobel(axis=-1): derivative on the last axis
     rows = {}
 
-    def sep_row(label, x, weights, dense):
+    def sep_kernel(x):
+        """The separable kernel's entry on the path a call of ``x`` takes:
+        the rows path for a 2-D array, else the planes path."""
+        return "rows_f32_kernel" if x.ndim == 2 else (
+            "fused_separable_f32_kernel")
+
+    def composite(x, weights, mode):
+        """One 1-D cuDNN convolution per filtered axis (TF32 off), each
+        on the previous one's output, over the input padded beforehand
+        by every axis' halo (pad not timed): the same function as the
+        kernel's, extended once."""
         nd = x.ndim
-        args = (x, weights, (0,) * nd, ("reflect",) * nd, 0.0)
+        conv = F.conv3d if nd == 3 else F.conv2d
+        pads = [(0, 0) if w is None else (len(w) // 2, len(w) - 1 - len(w) // 2)
+                for w in weights]
+        xp = boundary.pad(x, pads, mode)[None, None]
+        ks = []
+        for ax, w in enumerate(weights):
+            if w is not None:
+                shape = [1] * nd
+                shape[ax] = len(w)
+                ks.append(torch.tensor(w, dtype=torch.float32,
+                                       device="cuda").reshape(1, 1, *shape))
+
+        def run():
+            y = xp
+            for k in ks:
+                y = conv(y, k)
+            return y
+        return run
+
+    def sep_row(label, x, weights, dense, mode="reflect", atol=None,
+                n_plain=50):
+        nd = x.ndim
+        args = (x, weights, (0,) * nd, (mode,) * nd, 0.0)
         ntaps = [0 if w is None else len(w) for w in weights]
         lib = None
         if dense is not None:
             # one dense cuDNN convolution (not separable) over a volume
             # padded beforehand; the pad is not timed
-            xp = boundary.pad(x, [(k // 2, k // 2) for k in ntaps],
-                              "reflect")[None, None]
+            xp = boundary.pad(x, [(k // 2, k - 1 - k // 2) for k in ntaps],
+                              mode)[None, None]
             conv = F.conv3d if nd == 3 else F.conv2d
             lib = (lambda: conv(xp, dense), 1e-4 * float(dense.abs().sum()))
         ws = [w for w in weights if w is not None]
         normalized = all(abs(sum(w) - 1) < 1e-9 and min(w) >= 0 for w in ws)
-        atol = 2e-6 if normalized else 1e-5 * float(
-            np.prod([np.abs(w).sum() for w in ws]))
+        if atol is None:
+            atol = 2e-6 if normalized else 1e-5 * float(
+                np.prod([np.abs(w).sum() for w in ws]))
         rows[label] = time_row(
             label, lambda: fs.fused_separable_correlate(*args),
             lambda: fs.fused_separable_correlate_ref(*args), x,
             bound(x.numel(), flops=2 * sum(ntaps)), atol, lib,
             None if dense is None else
             "cuDNN conv with the dense filter, TF32 off, on an input padded "
-            "beforehand (pad not timed)", n_plain=50,
-            kernel="fused_separable_f32_kernel")
+            "beforehand (pad not timed)", n_plain=n_plain,
+            kernel=sep_kernel(x))
+        if ws:
+            run = composite(x, weights, mode)
+            ref = fs.fused_separable_correlate_ref(*args)
+            err = float((run().reshape(ref.shape) - ref).abs().max())
+            tol = atol(ref) if callable(atol) else atol
+            check(err <= 10 * tol, f"{label}: the separable composite "
+                                   f"disagrees ({err:.2e})")
+            rows[label]["composite_ms"] = median_ms(run, n=20)
+            rows[label]["composite_call"] = (
+                f"composite: one 1-D cuDNN conv{nd}d per filtered axis, TF32 "
+                "off, on an input padded beforehand (pad not timed)")
 
     sep_row("uniform_filter 256^3 size=5", xc3, (u5,) * 3,
             torch.full((1, 1, 5, 5, 5), 1 / 125, device="cuda"))
@@ -1745,7 +1901,7 @@ def main():
             f"torch max_pool{nd}d stride 1 on an input padded beforehand "
             "(pad not timed)" + (", on -x with both negations timed"
                                  if is_min else ""),
-            kernel="fused_separable_f32_kernel")
+            kernel=sep_kernel(x))
 
     minmax_row("minimum_filter 256^3 size=5", xc3, 5, True)
     minmax_row("maximum_filter 4096^2 size=9", imgc, 9, False)
@@ -1787,8 +1943,23 @@ def main():
             bound(x.numel(), minmax_ops=2 * least_ces(fp, rank)), 0,
             (lambda: torch.kthvalue(win, rank + 1, dim=-1).values, 0.0),
             "torch.kthvalue over the Tensor.unfold windows, gathered "
-            "beforehand (not timed)", n_plain=10, kernel="fused_rank_kernel")
+            "beforehand (not timed)", n_plain=10,
+            kernel="rank_instance_kernel")
+        check(fr.instance(fp, rank, x.dtype).id is not None,
+              f"{label}: no compile-time instance")
         del win
+        # the same call on the generic instance (the runtime network of
+        # the previous design, with the shared presort laid out flat)
+        real = fr.instance
+        fr.instance = lambda *a: fr.Instance(None, 0)
+        try:
+            y = fr.fused_rank_filter(*args)
+            check(same(y, fr.fused_rank_filter_ref(*args)),
+                  f"{label}: the generic instance differs from plain")
+            rows[label]["generic_kernel_ms"] = kernel_ms(
+                lambda: fr.fused_rank_filter(*args), "fused_rank_kernel")
+        finally:
+            fr.instance = real
 
     box5 = np.ones((5, 5), bool)
     rank_row("median_filter 4096^2 5x5", imgc, box5, 12)
@@ -1923,8 +2094,28 @@ def main():
         (lambda: F.conv2d(xp37, w37), 1e-4 * c_max),
         "cuDNN conv2d with the 37x37 outer product of the taps, TF32 off, "
         "on an input mirror-padded beforehand (pad not timed)",
-        n_plain=2, kernel="fused_separable_f32_kernel")
+        n_plain=2, kernel=sep_kernel(imgc))
     del xp37
+    r37 = rows["spline_filter 4096^2 order 3 (37 taps)"]
+    run = composite(imgc, (taps3, taps3), "mirror")
+    err = float((run()[0, 0] - fs.fused_separable_correlate(
+        imgc, (taps3, taps3), (0, 0), ("mirror",) * 2, 0.0)).abs().max())
+    check(err <= 1e-4 * c_max, f"37-tap composite disagrees ({err:.2e})")
+    r37["composite_ms"] = median_ms(run, n=20)
+    r37["composite_call"] = ("composite: one 1-D cuDNN conv2d per axis, TF32 "
+                             "off, on an input mirror-padded beforehand (pad "
+                             "not timed)")
+    del run
+    # the other prefilter poles of the main path, each one launch over
+    # both axes: order 3's on 2048^2 (map_coordinates, zoom), order 5's
+    # two on 4096^2 (shift); within 1e-5 of the pass's max|c|
+    taps57, taps17 = iir.pole_taps(5)
+    for label, x, taps in (
+            ("prefilter 2048^2 order 3 (37 taps)", xc2, taps3),
+            ("prefilter 4096^2 order 5 pole 1 (57 taps)", imgc, taps57),
+            ("prefilter 4096^2 order 5 pole 2 (17 taps)", imgc, taps17)):
+        sep_row(label, x, (taps, taps), None, mode="mirror",
+                atol=lambda c: 1e-5 * float(c.abs().max()), n_plain=5)
     torch.cuda.empty_cache()
 
     morph_rows(fs, boundary, torch, rows, xc3, imgc)
@@ -1967,9 +2158,51 @@ def main():
          "cupyimg_tpu/ops/pallas_fft.py:395", fft_labels[1]))
     launches["fused_fft"] = (sig_launches["fft_rows"]
                              + sig_launches["fft_strided"])
+    # each kernel's main-path launches by timed row: (row, calls); a
+    # row's kernel_ms covers its call's launches (the strided FFT's two)
+    fft_main = [lb for lb in fft_labels
+                if "pad folded" in lb or "window 4096" in lb]
+    loss_rows = {
+        "fused_separable_correlate": [
+            ("uniform_filter 256^3 size=5", 1),
+            ("gaussian_filter 2048^2 sigma=3", 1), ("sobel 256^3", 1),
+            ("prefilter 2048^2 order 3 (37 taps)", 2),
+            ("prefilter 4096^2 order 5 pole 1 (57 taps)", 1),
+            ("prefilter 4096^2 order 5 pole 2 (17 taps)", 1),
+            ("spline_filter 4096^2 order 3 (37 taps)", 1)],
+        "fused_separable_minmax": [("minimum_filter 256^3 size=5", 1),
+                                   ("maximum_filter 4096^2 size=9", 1)],
+        "fused_dense_correlate": [("correlate 4096^2 9x9", 1),
+                                  ("convolve 256^3 3x3x3", 1)],
+        "fused_rank_filter": [(lb, 1) for lb in (
+            "median_filter 4096^2 5x5", "percentile_filter 4096^2 30 5x5",
+            "median_filter 256^3 3x3x3",
+            "rank_filter 4096^2 i32 cross rank 2")],
+        "spline_gather": [(lb, 1) for lb in rows
+                          if lb.startswith(("affine_transform 4096^2",
+                                            "rotate 256^3",
+                                            "map_coordinates 2048^2",
+                                            "shift 4096^2", "zoom 2048^2"))],
+        "fused_separable_morph": [(lb, 1) for lb in rows
+                                  if lb.endswith(("(two-stage)", "(pair)"))
+                                  or "(two-stage, " in lb],
+        # fftconvolve, convolve and correlate: the four passes each;
+        # oaconvolve: its blocks' forward and inverse passes (the 257-tap
+        # operand's forward pass is not timed)
+        "fused_fft": [(lb, 3) for lb in fft_main] + [
+            (lb, 1) for lb in fft_labels if "4374 x" in lb],
+    }
     line = []
     for kname, src, replaces, case in kernels:
         r = rows[case]
+        covered = sum(n * rows[lb].get("launches_per_call", 1)
+                      for lb, n in loss_rows[kname])
+        loss = sum(n * (rows[lb]["kernel_ms"] - rows[lb]["bound_ms"])
+                   for lb, n in loss_rows[kname])
+        check(covered <= launches[kname], f"{kname}: {covered} launches "
+                                          f"timed of {launches[kname]}")
+        print(f"loss_ms {kname:28s} {loss:.5f} over {covered} of "
+              f"{launches[kname]} main-path launches")
         line.append({
             "name": kname,
             "route": "cuda",
@@ -1987,6 +2220,8 @@ def main():
             "copy_ms": r["copy_ms"],
             "shape": case,
             "card": card,
+            "loss_ms": loss,
+            "loss_launches_timed": covered,
         })
     line[-1]["entries"] = [
         {k: rows[lb][k] for k in ("case", "ms", "kernel_ms", "plain_ms",

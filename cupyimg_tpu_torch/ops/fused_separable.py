@@ -24,6 +24,7 @@ CPU tensor takes the plain versions (``*_ref``).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from dataclasses import dataclass
 
@@ -55,10 +56,20 @@ STAGES = 4
 MORPH_STAGES = 2
 #: output tile width along the last axis (kT2 in the kernel)
 T2 = 64
+#: the rows path (a 2-D array): output columns a block (kRowW) and input
+#: rows a step (kRowStep)
+ROW_W = 128
+ROW_STEP = 16
 #: shared memory one block can use on an H100 (232,448 bytes)
 SMEM_LIMIT = 227 * 1024
-# blocks the planner aims for: a few waves over the H100's 132 SMs
-_TARGET_BLOCKS = 1024
+#: axis-0 windows the planes path keeps in registers, not in a shared
+#: ring (the kernel's KZ instances)
+REGISTER_WINDOWS = (3, 5)
+# blocks the planes path aims for: about one resident wave of four blocks
+# on each of the H100's 132 SMs (half the planes' axis-0 halo of 1024)
+_TARGET_BLOCKS = 512
+# the rows path's blocks: one resident wave of four blocks on each SM
+_ROW_BLOCKS = 4 * 132
 
 _MODE_CODES = {
     "reflect": 0, "grid-mirror": 0,
@@ -107,6 +118,9 @@ class Plan:
     axis 0 over the tile ``[o1, o1 + t1) x [o2, o2 + t2)`` of axes 1 and
     2, clipped to the volume, with ``o1 = (bx // tiles2) * t1`` and
     ``o2 = (bx % tiles2) * t2``: the same arithmetic as the kernel.
+    ``mode`` is the kernel's path or mode (:func:`smem_bytes`); on the
+    rows path a block marches down its ``t1`` rows of a strip ``t2``
+    wide.
     """
 
     shape: tuple
@@ -116,6 +130,7 @@ class Plan:
     z: int
     grid: tuple
     smem_bytes: int
+    mode: str = "separable"
 
     @property
     def tiles2(self):
@@ -134,12 +149,36 @@ class Plan:
         )
 
 
+def _row_chunks(k2, t2):
+    """16-byte chunks of a halo'd tile row of ``t2 + k2 - 1`` samples
+    from any alignment (``nch`` in the planes kernel)."""
+    return (t2 + k2 - 1 + 6) // 4
+
+
+def _row_units(k2):
+    """8-sample units of a rows-path stage row (``nu`` in the kernel):
+    3 + ROW_W + k2 - 1 samples from any alignment, rounded up to 2 modulo
+    4 so that the two rows a warp reads fall on disjoint banks."""
+    need = (ROW_W + k2 + 2 + 7) // 8
+    return (need + 1) // 4 * 4 + 2
+
+
+def row_ring(k1):
+    """Rows of the rows path's ring: the vertical window's K1 - 1 rows
+    of halo plus a step, rounded up to a step (``ring_rows`` in the
+    kernel)."""
+    return ROW_STEP * (math.ceil((k1 - 1) / ROW_STEP) + 1)
+
+
 def smem_bytes(ntaps, t1, t2=T2, mode="separable"):
     """Shared memory of one block, in bytes (4-byte words).
 
-    ``mode="separable"``: the taps, the row and column index maps, STAGES
-    halo'd input tiles, the tile after the axis-2 pass and the ring of K0
-    filtered planes.  ``"open_close"``: the index maps, MORPH_STAGES
+    ``mode="separable"`` (the planes path): the taps, the row and column
+    index maps, STAGES halo'd input tiles (rows of 16-byte chunks), the
+    tile after the axis-2 pass and the ring of K0 filtered planes (none
+    for K0 in REGISTER_WINDOWS).  ``"rows"`` (a 2-D array): the taps of two axes, two
+    stage buffer of ROW_STEP input rows and the ring of :func:`row_ring`
+    filtered rows of ``t2``; ``t1``, the block's rows, costs nothing.  ``"open_close"``: the index maps, MORPH_STAGES
     input tiles halo'd by both stages' windows, stage 1's tile after
     axis 2, its ring of K0 planes and its output plane (each halo'd by
     stage 2's window), stage 2's tile after axis 2 and its ring of K0
@@ -156,19 +195,36 @@ def smem_bytes(ntaps, t1, t2=T2, mode="separable"):
     if mode == "pair":
         return 4 * (h1 + h2 + MORPH_STAGES * h1 * h2 + 2 * h1 * t2
                     + 2 * k0 * t1 * t2)
+    if mode == "rows":
+        return 4 * (2 * MAX_TAPS + ROW_STEP * 8 * _row_units(k2)
+                    + row_ring(k1) * t2)
     if mode != "separable":
         raise ValueError(f"unknown kernel mode {mode!r}")
-    return 4 * (3 * MAX_TAPS + h1 + h2 + STAGES * h1 * h2 + h1 * t2
-                + k0 * t1 * t2)
+    maps = (h1 + h2 + 3) // 4 * 4
+    ring = 0 if k0 in REGISTER_WINDOWS else k0 * t1 * t2
+    return 4 * (3 * MAX_TAPS + maps + STAGES * h1 * 4 * _row_chunks(k2, t2)
+                + h1 * t2 + ring)
 
 
 def plan(shape, ntaps, mode="separable"):
     """Tiles, grid and shared-memory bytes for a (n0, n1, n2) volume with
     ``ntaps`` taps (or window samples) per axis (1 for an axis that is not
-    filtered), for one of the kernel's modes (:func:`smem_bytes`).
+    filtered), for one of the kernel's modes (:func:`smem_bytes`).  A
+    ``"separable"`` call on one plane with axis 0 unfiltered (a 2-D
+    array) takes the rows path: strips of ROW_W columns, and runs of rows
+    (a multiple of ROW_STEP) that give about one resident wave of blocks.
     Raises ValueError when not even a one-row tile fits."""
     n0, n1, n2 = (int(s) for s in shape)
     ntaps = tuple(int(k) for k in ntaps)
+    if mode == "separable" and n0 == 1 and ntaps[0] == 1:
+        strips = math.ceil(n2 / ROW_W)
+        rows = ROW_STEP * max(1, min(math.ceil(n1 / ROW_STEP), math.ceil(
+            n1 * strips / _ROW_BLOCKS / ROW_STEP)))
+        return Plan(
+            shape=(n0, n1, n2), ntaps=ntaps, t1=rows, t2=ROW_W, z=1,
+            grid=(strips * math.ceil(n1 / rows), 1),
+            smem_bytes=smem_bytes(ntaps, rows, ROW_W, "rows"), mode="rows",
+        )
     t2 = T2
     t1 = 8 if n1 <= 8 else 16
     while smem_bytes(ntaps, t1, t2, mode) > SMEM_LIMIT:
@@ -250,14 +306,53 @@ def _check_input(x, *per_axis):
         raise ValueError("one weights/size/origin/mode entry per axis expected")
 
 
+@functools.lru_cache(maxsize=256)
 def _geometry(shape3, ntaps, mode):
-    """The kernel's dims and plan arguments (t1, z, grid, shared bytes)."""
+    """The kernel's dims and plan arguments (t1, z, grid, shared bytes,
+    path: 1 for the rows path, and a slot for the 16-byte flag), planned
+    once per shape, taps and mode."""
     p = plan(shape3, ntaps, mode)
     dims = np.asarray(shape3, np.int32)
-    geom = np.asarray(
-        (p.t1, p.z, p.grid[0], p.grid[1], p.smem_bytes), np.int32
-    )
+    geom = np.asarray((p.t1, p.z, p.grid[0], p.grid[1], p.smem_bytes,
+                       int(p.mode == "rows"), 0), np.int32)
+    dims.setflags(write=False)  # shared by every call of the cache
+    geom.setflags(write=False)
     return dims, geom
+
+
+def _plan_args(x, shape3, ntaps, mode):
+    """``_geometry`` with its last entry set: whether rows may be read in
+    16-byte chunks (an aligned array whose rows are a multiple of 16
+    bytes)."""
+    dims, geom = _geometry(tuple(shape3), tuple(int(k) for k in ntaps), mode)
+    geom = geom.copy()
+    geom[6] = int(x.data_ptr() % 16 == 0 and shape3[2] % 4 == 0)
+    return dims, geom
+
+
+@functools.lru_cache(maxsize=256)
+def _axis_args(pad3, weights, origins, modes, op):
+    """The kernel's taps (3 x 64) and per-axis (ntaps, lo, mode, kind) for
+    hashable ``weights`` (tuples or None): packed once per filter."""
+    taps = np.zeros((3, MAX_TAPS), np.float32)
+    info = np.zeros((3, 4), np.int32)  # ntaps, lo, mode, kind
+    info[:, 0] = 1
+    taps[:, 0] = 1.0
+    info[:, 3] = 1
+    for ax, (w, origin, mode) in enumerate(zip(weights, origins, modes)):
+        boundary.check_mode(mode)
+        if w is None:
+            continue
+        if not 1 <= len(w) <= MAX_TAPS:
+            raise ValueError(f"fused_separable kernel takes 1..{MAX_TAPS} taps")
+        lo, _ = _window(len(w), int(origin))
+        a = ax + pad3
+        taps[a, : len(w)] = w
+        kind = _tap_kind(w) if op == "corr" else 0
+        info[a] = (len(w), lo, _MODE_CODES[mode], kind)
+    taps.setflags(write=False)  # shared by every call of the cache
+    info.setflags(write=False)
+    return taps, info
 
 
 def _launch(x, weights, origins, modes, cval, op="corr"):
@@ -268,27 +363,14 @@ def _launch(x, weights, origins, modes, cval, op="corr"):
     _check_input(x, weights, origins, modes)
     pad3 = 3 - x.ndim
     shape3 = (1,) * pad3 + tuple(x.shape)
-    taps = np.zeros((3, MAX_TAPS), np.float32)
-    info = np.zeros((3, 4), np.int32)  # ntaps, lo, mode, kind
-    info[:, 0] = 1
-    taps[:, 0] = 1.0
-    info[:, 3] = 1
-    for ax, (w, origin, mode) in enumerate(zip(weights, origins, modes)):
-        boundary.check_mode(mode)
-        if w is None:
-            continue
-        w = [float(v) for v in w]
-        if not 1 <= len(w) <= MAX_TAPS:
-            raise ValueError(f"fused_separable kernel takes 1..{MAX_TAPS} taps")
-        lo, _ = _window(len(w), int(origin))
-        a = ax + pad3
-        taps[a, : len(w)] = w
-        kind = _tap_kind(w) if op == "corr" else 0
-        info[a] = (len(w), lo, _MODE_CODES[mode], kind)
+    taps, info = _axis_args(
+        pad3, tuple(None if w is None else tuple(float(v) for v in w)
+                    for w in weights),
+        tuple(int(o) for o in origins), tuple(modes), op)
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
-    dims, geom = _geometry(shape3, info[:, 0], "separable")
+    dims, geom = _plan_args(x, shape3, info[:, 0], "separable")
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -302,6 +384,7 @@ def _launch(x, weights, origins, modes, cval, op="corr"):
     return y
 
 
+@functools.cache
 def _library():
     from cupyimg_tpu_torch.ops import _build
 
@@ -463,8 +546,8 @@ def _launch_morph(x, sizes, origins1, origins2, modes, cval, kind):
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
-    dims, geom = _geometry(
-        shape3, info[:, 0],
+    dims, geom = _plan_args(
+        x, shape3, info[:, 0],
         "open_close" if kind in ("opening", "closing") else "pair")
     lib = _library()
     with torch.cuda.device(x.device):

@@ -9,11 +9,15 @@ constructors are pure Python; the wire ops are ``torch.minimum`` and
 built and no generic sort runs.  NaN propagates through every CE, as in
 ``torch.minimum``.
 
-The same CE lists drive the rank kernel (``csrc/fused_rank.cu``), which
-runs :func:`pruned_network` per output point, so the kernel and
-:func:`rank_select` agree bitwise.  The presorted-run networks
-(:func:`presorted_rank_network`, :func:`merge_runs_full_network`) count
-the fewest CEs known for a rectangular footprint.
+The same CE lists drive the rank kernel (``csrc/fused_rank.cu``):
+its generic instance runs :func:`flat_rank_network` per output point
+from a list staged at run time, and its compile-time instances run the
+networks that :func:`cuda_networks` writes out as C++
+(``csrc/rank_networks.cuh``), so the kernel and the plain version agree
+bitwise.  The presorted-run networks (:func:`presorted_rank_network`,
+:func:`merge_runs_full_network`) count the fewest CEs known for a
+rectangular footprint: the lane window sorted once and shared, then only
+the merge of the sorted runs per output.
 """
 
 from __future__ import annotations
@@ -24,6 +28,8 @@ import torch
 
 __all__ = [
     "batcher_network",
+    "cuda_networks",
+    "flat_rank_network",
     "merge_runs_full_network",
     "presorted_rank_network",
     "pruned_network",
@@ -308,3 +314,124 @@ def sort_runs_values(run_values):
         wires[a] = lo
         wires[b] = hi
     return [wires[w] for w in order]
+
+
+def rect_stages(fshape3, rank):
+    """The three stages of a full rectangle's shared presort, for a
+    footprint of shape ``(F0, F1, F2)`` (a 2-D one as ``(F0, 1, F2)``):
+    ``(lane sort, row merge and its order, presorted rank network and its
+    output wire)``, as ``cupyimg_tpu``'s rectangle route runs them: each
+    lane window of F2 sorted, the F1 sorted lanes of a plane merged into
+    one run of F1 * F2, and the F0 runs merged down to ``rank``."""
+    f0, f1, f2 = (int(v) for v in fshape3)
+    merge, order = merge_runs_full_network(f2, f1)
+    ces, out = presorted_rank_network(f1 * f2, f0, int(rank))
+    return batcher_network(f2), (merge, order), (ces, out)
+
+
+@functools.lru_cache(maxsize=None)
+def flat_rank_network(fshape3, mask, rank):
+    """(ces, out_wire) over the K taps of a footprint, wire k holding tap
+    k in ``np.argwhere`` order: the footprint is ``fshape3`` (a 2-D one as
+    ``(F0, 1, F2)``) with the taps set in the C-order bit ``mask``.  A full
+    rectangle gets its shared presort laid out flat, every stage on the
+    wires of one output (the same compare-exchanges on the same values as
+    :func:`rect_stages` run shared, so the same result bit for bit);
+    any other footprint the rank-pruned Batcher network."""
+    f0, f1, f2 = (int(v) for v in fshape3)
+    k = bin(mask).count("1")
+    if k != f0 * f1 * f2:
+        return pruned_network(k, int(rank)), int(rank)
+    lane, (merge, order), (final, out) = rect_stages(fshape3, rank)
+    run = f1 * f2
+    ces = []
+    for base in range(0, k, f2):  # every lane window
+        ces += [(base + a, base + b) for a, b in lane]
+    for base in range(0, k, run):  # every plane's rows
+        ces += [(base + a, base + b) for a, b in merge]
+
+    def wire(i):  # position q of sorted run r
+        r, q = divmod(i, run)
+        return r * run + order[q]
+
+    ces += [(wire(a), wire(b)) for a, b in final]
+    return tuple(ces), wire(out)
+
+
+def _cuda_ces(ces):
+    return "".join(f"    rn_ce(v[{a}], v[{b}]);\n" for a, b in ces)
+
+
+def cuda_networks(instances, parts, types):
+    """The C++ header ``csrc/rank_networks.cuh`` for the rank kernel's
+    compile-time instances: every network an instance runs as a template
+    specialisation of straight-line compare-exchanges (``rn_ce`` on
+    constant wire indices, so after unrolling every wire is a register),
+    and the instance table as one X-macro per part.
+
+    ``instances``: ``(fshape3, mask, rank)`` per instance id (see
+    :func:`flat_rank_network`); ``parts``: the part each id is compiled
+    in; ``types``: the data types each id is built for (bit 0 float32,
+    bit 1 int32)."""
+    sorts, merges, presorted, pruned = set(), set(), set(), set()
+    for fshape3, mask, rank in instances:
+        f0, f1, f2 = fshape3
+        k = bin(mask).count("1")
+        if k == f0 * f1 * f2:
+            sorts.add(f2)
+            merges.add((f2, f1))
+            presorted.add((f1 * f2, f0, rank))
+        else:
+            pruned.add((k, rank))
+    out = [
+        "// Compare-exchange networks of the rank kernel's compile-time\n"
+        "// instances (csrc/fused_rank.cu).  Generated from\n"
+        "// ops/sorting_networks.py by ops/fused_rank.py:write_header; do not\n"
+        "// edit (tests/test_torch_fused_rank.py compares it with a fresh\n"
+        "// copy).\n",
+        "#pragma once\n\n#include \"boundary.cuh\"\n\n",
+        "// wire a gets the smaller value, wire b the larger; NaN reaches both\n",
+        "template <class T>\n__device__ __forceinline__ void rn_ce(T& a, T& b) "
+        "{\n  const T lo = min_nan(a, b);\n  b = max_nan(a, b);\n  a = lo;\n}\n\n",
+        "// RnSort<N>::run(v): v[0..N) ascending (Batcher)\n",
+        "template <int N>\nstruct RnSort;\n",
+        "// RnMerge<RUN, NRUNS>::run(v, o): o[0..RUN*NRUNS) ascending, from\n"
+        "// NRUNS runs each ascending (v[r * RUN + q])\n",
+        "template <int RUN, int NRUNS>\nstruct RnMerge;\n",
+        "// RnPresorted<RUN, NRUNS, RANK>::run(v): the RANK-th smallest of\n"
+        "// NRUNS ascending runs (v[r * RUN + q]); v is overwritten\n",
+        "template <int RUN, int NRUNS, int RANK>\nstruct RnPresorted;\n",
+        "// RnPruned<N, RANK>::run(v): the RANK-th smallest of v[0..N)\n",
+        "template <int N, int RANK>\nstruct RnPruned;\n",
+    ]
+    head = "  template <class T>\n  __device__ static __forceinline__ "
+    for n in sorted(sorts):
+        out.append(f"\ntemplate <>\nstruct RnSort<{n}> {{\n{head}void run(T* v) "
+                   f"{{\n{_cuda_ces(batcher_network(n))}  }}\n}};\n")
+    for run, nruns in sorted(merges):
+        ces, order = merge_runs_full_network(run, nruns)
+        body = _cuda_ces(ces) + "".join(
+            f"    o[{q}] = v[{w}];\n" for q, w in enumerate(order))
+        out.append(f"\ntemplate <>\nstruct RnMerge<{run}, {nruns}> {{\n"
+                   f"{head}void run(T* v, T* o) {{\n{body}  }}\n}};\n")
+    for run, nruns, rank in sorted(presorted):
+        ces, w = presorted_rank_network(run, nruns, rank)
+        out.append(f"\ntemplate <>\nstruct RnPresorted<{run}, {nruns}, {rank}> "
+                   f"{{\n{head}T run(T* v) {{\n{_cuda_ces(ces)}"
+                   f"    return v[{w}];\n  }}\n}};\n")
+    for n, rank in sorted(pruned):
+        out.append(f"\ntemplate <>\nstruct RnPruned<{n}, {rank}> {{\n"
+                   f"{head}T run(T* v) {{\n{_cuda_ces(pruned_network(n, rank))}"
+                   f"    return v[{rank}];\n  }}\n}};\n")
+    nparts = max(parts) + 1
+    out.append("\n// The instances: X(id, F0, F1, F2, mask, rank, types), one list a\n"
+               "// part; types: bit 0 float32, bit 1 int32\n"
+               f"#define RN_NPARTS {nparts}\n")
+    for part in range(nparts):
+        out.append(f"#define RN_INSTANCES_{part}(X)")
+        for i, ((f0, f1, f2), mask, rank) in enumerate(instances):
+            if parts[i] == part:
+                out.append(f" \\\n  X({i}, {f0}, {f1}, {f2}, {mask:#x}ull, {rank}, "
+                           f"{types[i]})")
+        out.append("\n")
+    return "".join(out)

@@ -110,6 +110,27 @@ def test_integer_parity_exact(name, args, kwargs, dtype, output):
     _check(*_both(name, x, *args, **kwargs), 0)
 
 
+def test_bool_input_follows_cupyimg_tpu_not_scipy():
+    """A recorded departure, not a fault: on a bool mask the correlation
+    filters give True wherever the float result is nonzero, as
+    cupyimg_tpu does; SciPy keeps only outputs that reach 1.  The port
+    follows cupyimg_tpu element for element, and the two differ from
+    SciPy here."""
+    import jax
+    import scipy.ndimage as sndi
+
+    b = np.random.default_rng(0).random((7, 9)) > 0.5
+    calls = (("uniform_filter", 3), ("gaussian_filter", 1))
+    exps = jax.jit(lambda a: tuple(getattr(jndi, name)(a, arg)
+                                   for name, arg in calls))(jnp.asarray(b))
+    for (name, arg), exp in zip(calls, exps):
+        got = getattr(tndi, name)(torch.from_numpy(b), arg).numpy()
+        _check(got, np.asarray(exp), 0)
+        assert got.dtype == np.bool_ and int(got.sum()) == 63
+        sp = getattr(sndi, name)(b, arg)
+        assert sp.dtype == np.bool_ and not np.array_equal(got, sp)
+
+
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
 def test_axes_origins_and_mixed_modes(dtype):
     x = np.random.RandomState(3).rand(*SHAPE3).astype(dtype)

@@ -9,7 +9,8 @@
   Pallas lane-matmul plan departs from it (constant mode, nonzero cval,
   taps that do not sum to 1: a case the library's cval gate never sends
   to a fused kernel).
-- The tile planner's coverage and shared-memory bound.
+- The tile planner's coverage and shared-memory bound, on both paths
+  (planes; rows for a 2-D array).
 - That the port never imports JAX or the JAX package.
 - On a CUDA device only: the kernel against its plain version.
 """
@@ -210,7 +211,11 @@ def test_planner_tiles_cover_output_exactly(shape, ntaps):
             assert all(s.start < s.stop for s in region)  # no idle block
             hits[region] += 1
     assert (hits == 1).all()
-    assert p.smem_bytes == fs.smem_bytes(ntaps, p.t1, p.t2) <= fs.SMEM_LIMIT
+    assert p.smem_bytes == fs.smem_bytes(ntaps, p.t1, p.t2, p.mode) <= (
+        fs.SMEM_LIMIT)
+    # one plane with axis 0 unfiltered is a 2-D array: the rows path
+    assert p.mode == ("rows" if shape[0] == 1 and ntaps[0] == 1
+                      else "separable")
 
 
 @pytest.mark.parametrize(
@@ -224,6 +229,35 @@ def test_planner_fits_256_cubed(ntaps):
     assert p.grid[0] == math.ceil(256 / p.t1) * math.ceil(256 / p.t2)
     assert (p.grid[1] - 1) * p.z < 256 <= p.grid[1] * p.z
     assert p.grid[0] * p.grid[1] >= 132  # every SM of an H100 gets a block
+
+
+def test_rows_path_plan_fits_every_tap_count():
+    """The rows path (a 2-D array): every pair of tap counts 1..64 fits
+    64 KB, so three blocks of 256 threads share an SM; the ring holds the
+    vertical halo and a step, the stage rows the horizontal halo from any
+    alignment; the steps a block runs cover its rows and their halo."""
+    for k1 in range(1, fs.MAX_TAPS + 1):
+        ring = fs.row_ring(k1)
+        assert ring % fs.ROW_STEP == 0 and ring >= k1 - 1 + fs.ROW_STEP
+        assert ring < k1 - 1 + 2 * fs.ROW_STEP
+        for k2 in range(1, fs.MAX_TAPS + 1):
+            b = fs.smem_bytes((1, k1, k2), 8, fs.ROW_W, "rows")
+            assert 3 * b <= fs.SMEM_LIMIT and b <= 64 * 1024
+            units = fs._row_units(k2)
+            # 16 threads of 8 outputs read up to sample 3 + 127 + k2 - 1
+            assert 8 * units >= 3 + fs.ROW_W + k2 - 1 and units % 4 == 2
+            assert fs.ROW_STEP * units <= 2 * 256  # two units a thread
+    for shape, k in (((4096, 4096), 37), ((4096, 4096), 57),
+                     ((2048, 2048), 25), ((4096, 4096), 9)):
+        p = fs.plan((1, *shape), (1, k, k))
+        assert p.mode == "rows" and p.t1 % fs.ROW_STEP == 0
+        # about one resident wave: four blocks on each of 132 SMs
+        assert 132 * 3 <= p.grid[0] <= 132 * 5 and p.grid[1] == 1
+        lag = (k - 1 + fs.ROW_STEP - 1) // fs.ROW_STEP
+        steps = p.t1 // fs.ROW_STEP + lag
+        assert fs.ROW_STEP * steps >= p.t1 + k - 1
+        # the vertical halo's share: (t1 + k - 1) / t1 rows filtered
+        assert (p.t1 + k - 1) / p.t1 < 1.5
 
 
 def test_port_never_imports_jax():
