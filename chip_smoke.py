@@ -28,7 +28,13 @@ Phases, each fatal on failure (a traceback and a non-zero exit):
    and the fused separable kernel's two-stage (opening, closing) and
    pair (gradient, laplace) modes, exactly, NaN included, under every
    mode, sizes 1-9 mixed across axes, even sizes with origins under wrap,
-   and the widest windows the planner fuses; the FFT kernel's rows and
+   and the widest windows the planner fuses, on each of their paths (2-D
+   rows with windows of 3, 9 and 64; 3-D planes with the axis-0 window
+   of 1, 3 and 5 in registers, and rings for 7 and an even window); the
+   dense kernel's register-blocked instances (each (K0, S) once, a span
+   cut into chunks, zero-bordered weights) and its generic kernel
+   (sparse footprints), a zero tap over an inf in each (skipped: the
+   plain version's infinities, no NaN); the FFT kernel's rows and
    strided entries (forward, real input, inverse with a broadcast
    product, scale and real output, a round trip, the folded zero pad
    and crop with odd starts) at the smallest and largest sizes its gate
@@ -64,8 +70,13 @@ Phases, each fatal on failure (a traceback and a non-zero exit):
    correlation a composite of one 1-D cuDNN convolution per filtered
    axis), every main-path launch of the separable correlation timed
    (the prefilter's poles: order 3's 37 taps on 4096^2 and 2048^2,
-   order 5's 57 and 17 taps on 4096^2), each rank row beside the same
-   call on the generic instance (``generic_kernel_ms``), each kernel's
+   order 5's 57 and 17 taps on 4096^2), each rank and dense row beside
+   the same call on the generic instance or kernel
+   (``generic_kernel_ms``), each B1-morph row beside the two B1 min/max
+   launches of the two-call route (``two_launch_ms``,
+   ``two_launch_kernel_ms``, and whether the fused kernel wins), the
+   signal path's direct ``convolve(4096^2, 31x31)`` on the dense kernel
+   (not in its ``loss_ms``), each kernel's
    ``loss_ms`` (the sum over its main-path launches of kernel_ms -
    bound_ms), the end-to-end fftconvolve
    against torch.fft, and the direct and fft times of the main-path
@@ -274,15 +285,36 @@ def ptxas_lines(_build, fr):
           f"{max(e[1] for e in inst)} registers, "
           f"{sum(1 for e in inst if e[2] or e[4])} with spills or stack")
     log = _build.library_path("fused_separable").with_suffix(".log")
+    kinds = ("opening", "closing", "gradient", "laplace")
     for name, regs, st, ld, stack in ptxas_entries(log.read_text()):
+        spill = (f"{regs} registers, {st} bytes spill stores, {ld} bytes "
+                 f"spill loads, {stack} bytes stack")
+        m = re.search(r"morph_planes_f32_kernelILi(\d)ELi(\d)E", name)
+        if m:
+            window = ("ring" if m.group(2) == "0" else
+                      f"axis-0 window {m.group(2)} in registers")
+            print(f"ptxas B1-morph planes path {kinds[int(m.group(1))]}, "
+                  f"{window}: {spill}")
+            continue
+        m = re.search(r"morph_rows_f32_kernelILi(\d)E", name)
+        if m:
+            print(f"ptxas B1-morph rows path {kinds[int(m.group(1))]}: "
+                  f"{spill}")
+            continue
         for kernel, path in (("fused_separable_f32_kernel", "planes"),
                              ("rows_f32_kernel", "rows")):
             if kernel in name:
                 op = ("corr", "min", "max")[int(re.search(
                     kernel + r"ILi(\d)E", name).group(1))]
-                print(f"ptxas B1 {path} path {op}: {regs} registers, {st} "
-                      f"bytes spill stores, {ld} bytes spill loads, {stack} "
-                      "bytes stack")
+                print(f"ptxas B1 {path} path {op}: {spill}")
+    log = _build.library_path("fused_dense").with_suffix(".log")
+    for name, regs, st, ld, stack in ptxas_entries(log.read_text()):
+        m = re.search(r"dense_blocked_f32_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
+                      name)
+        label = (f"blocked instance K0 {m.group(1)} S {m.group(2)} R "
+                 f"{m.group(3)}" if m else "generic kernel")
+        print(f"ptxas B2 {label}: {regs} registers, {st} bytes spill "
+              f"stores, {ld} bytes spill loads, {stack} bytes stack")
 
 
 # ---------------------------------------------------------------------------
@@ -429,6 +461,29 @@ def morph_vs_plain(fs, torch):
     cases += [("3d-64^3", (16, 24, 40), (64, 64, 64), (0, 0, 0),
                ("constant", "reflect", "wrap"), 0.5, k)
               for k in ("grad", "laplace")]
+    # each path and fold of the kernels: the rows path's windows of
+    # 3, 9 and 64 over several strips and row runs, NaN; the planes path's
+    # register windows (K0 = 1, 3, 5) and rings (K0 = 7, and an even one)
+    # over several blocks of planes, with wrap and constant modes
+    for kind in kinds:
+        cases += [
+            ("2d-rows-3x3-wrap", (1000, 700), (3, 3), (0, 0),
+             ("wrap",) * 2, 0.0, kind),
+            ("2d-rows-9x9-nan", (1000, 700), (9, 9), (0, 0),
+             ("reflect", "constant"), 0.5, kind),
+            ("2d-rows-64x64", (400, 500), (64, 64), (0, 0),
+             ("mirror", "wrap"), 0.0, kind),
+            ("3d-window-1", (40, 45, 70), (1, 9, 5), (0, 0, 0),
+             ("reflect",) * 3, 0.0, kind),
+            ("3d-window-3-nan", (64, 45, 70), (3, 3, 3), (0, 0, 0),
+             ("wrap",) * 3, 0.0, kind),
+            ("3d-window-5", (64, 45, 70), (5, 5, 5), (0, 0, 0),
+             ("constant", "reflect", "grid-wrap"), -0.5, kind),
+            ("3d-ring-7", (40, 45, 70), (7, 5, 3), (0, 0, 0),
+             ("mirror", "nearest", "wrap"), 0.0, kind),
+            ("3d-ring-4-nan", (40, 45, 70), (4, 2, 6), (1, 0, -2),
+             ("wrap",) * 3, 0.0, kind),
+        ]
     for name, shape, sizes, origins, cmodes, cval, kind in cases:
         xh = rng.randn(*shape).astype(np.float32)
         if "nan" in name:
@@ -489,19 +544,69 @@ def dense_vs_plain(fd, torch):
         ("2d-row-split-1x13000", (8, 7000),
          _sparse((1, 13000), 3, rng), (0, 0), "wrap", 0.0),
     ]
+    # each instance of the blocked kernel, a span wider than the
+    # widest (rows cut into chunks), zero-bordered weights, several blocks
+    # of planes; sparse footprints take the generic kernel
+    cases += [(f"2d-blocked-{k}x{k + 2}", (600, 517), rng.randn(k, k + 2),
+               (0, 0), "reflect", 0.0) for k in (1, 3, 5, 7, 9, 16)]
+    cases += [(f"3d-blocked-{k0}x{k}x{k}", (70, 50, 70),
+               rng.randn(k0, k, k), (0, 0, 0), "mirror", 0.0)
+              for k0 in (2, 3, 4, 5) for k in (3, 5)]
+    w_border = np.zeros((11, 9))
+    w_border[3:8, 1:6] = rng.randn(5, 5)
+    cases += [
+        ("2d-blocked-31x31-chunks", (600, 517), rng.randn(31, 31), (0, 0),
+         "constant", 0.0),
+        ("2d-blocked-zero-border", (600, 517), w_border, (1, -2), "wrap",
+         0.0),
+        ("3d-blocked-4x7x7-chunks", (70, 50, 70), rng.randn(4, 7, 7),
+         (1, 0, -2), "grid-constant", 0.5),
+    ]
     for name, shape, w, origins, mode, cval in cases:
         x = torch.from_numpy(rng.rand(*shape).astype(np.float32)).cuda()
+        route = ("generic" if fd.blocked_plan(np.asarray(w, np.float32))
+                 is None else "blocked")
         got = fd.fused_dense_correlate(x, w, origins, mode, cval)
         ref = fd.fused_dense_correlate_ref(x, w, origins, mode, cval)
         torch.cuda.synchronize()
         tol = 1e-5 * float(np.abs(w).sum()) * max(1.0, abs(cval))
         err = float((got - ref).abs().max())
         print(f"kernel-vs-plain dense {name:26s} {str(shape):15s} "
-              f"nnz {int(np.count_nonzero(w)):5d} max_abs_err {err:.3e} "
-              f"(atol {tol:.1e})")
+              f"nnz {int(np.count_nonzero(w)):5d} {route:7s} max_abs_err "
+              f"{err:.3e} (atol {tol:.1e})")
         check(bool(torch.isfinite(got).all()), f"dense {name}: bad output")
         check(err <= tol, f"dense {name}: kernel disagrees with its plain "
                           "version")
+    # a zero tap over an inf is skipped, not multiplied: both kernels give
+    # the plain version's infinities and no NaN
+    for name, shape, w in (("2d-zero-tap-over-inf", (300, 517),
+                            np.array([[0.0, 1.0, -2.0], [0.5, 0.0, 0.0],
+                                      [1.0, 0.25, 3.0]])),
+                           ("3d-zero-tap-over-inf", (20, 50, 70),
+                            np.where(rng.rand(3, 3, 3) < 0.3, 0.0,
+                                     rng.randn(3, 3, 3))),
+                           ("2d-sparse-zero-tap-over-inf", (300, 517),
+                            _sparse((25, 40), 60, rng))):
+        xh = rng.rand(*shape).astype(np.float32)
+        xh[tuple(rng.randint(0, n, 40) for n in shape)] = np.inf
+        xh[tuple(rng.randint(0, n, 40) for n in shape)] = -np.inf
+        x = torch.from_numpy(xh).cuda()
+        nd = len(shape)
+        got = fd.fused_dense_correlate(x, w, (0,) * nd, "reflect", 0.0)
+        ref = fd.fused_dense_correlate_ref(x, w, (0,) * nd, "reflect", 0.0)
+        torch.cuda.synchronize()
+        fin = torch.isfinite(ref)
+        ok = (torch.equal(got.isnan(), ref.isnan())
+              and torch.equal(torch.isfinite(got), fin)
+              and torch.equal(got[~fin & ~ref.isnan()],
+                              ref[~fin & ~ref.isnan()]))
+        err = float((got - ref)[fin].abs().max())
+        tol = 1e-5 * float(np.abs(w).sum())
+        print(f"kernel-vs-plain dense {name:26s} {str(shape):15s} non-finite "
+              f"{int((~fin).sum())} same {ok} max_abs_err {err:.3e} (atol "
+              f"{tol:.1e})")
+        check(ok and err <= tol, f"dense {name}: kernel disagrees with its "
+                                 "plain version")
 
 
 def rank_vs_plain(fr, torch):
@@ -1034,8 +1139,11 @@ def morphology_path(fs, ndi, sndi, torch, x3, xc3, img, imgc, shape2):
 def morph_rows(fs, boundary, torch, rows, xc3, imgc):
     """Phase 5, B1-morph: the two-stage and pair kernels at the main
     path's shapes, each against its plain version (exact), beside the two
-    B1 min/max launches the two-call route takes (``two_launch_ms``) and
-    the max_pool composite (the input padded beforehand, not timed)."""
+    B1 min/max launches the two-call route takes (``two_launch_ms``, CUDA
+    events around both calls, and ``two_launch_kernel_ms``, the two
+    kernels by profiler; for the pair the min and the max, the combine
+    not counted) and the max_pool composite (the input padded beforehand,
+    not timed).  Prints whether the fused kernel wins."""
     F = torch.nn.functional
 
     def pool(x, size, is_min):
@@ -1047,6 +1155,18 @@ def morph_rows(fs, boundary, torch, rows, xc3, imgc):
         out = -op(-y, size, stride=1) if is_min else op(y, size, stride=1)
         return out[0, 0]
 
+    def two_launch(label, two, x):
+        """The two-call route's two B1 min/max launches beside the row's
+        fused kernel."""
+        row = rows[label]
+        b1 = "rows_f32_kernel" if x.ndim == 2 else "fused_separable_f32_kernel"
+        row["two_launch_ms"] = median_ms(two)
+        row["two_launch_kernel_ms"] = kernel_ms(two, b1, per_call=2)
+        verdict = ("wins" if row["kernel_ms"] < row["two_launch_kernel_ms"]
+                   else "loses")
+        print(f"B1-morph {label}: kernel_ms {row['kernel_ms']:.4f} against "
+              f"two B1 launches {row['two_launch_kernel_ms']:.4f}: {verdict}")
+
     def open_close_row(label, x, size, mode, opening):
         nd = x.ndim
         sizes, zero = (size,) * nd, (0,) * nd
@@ -1054,11 +1174,7 @@ def morph_rows(fs, boundary, torch, rows, xc3, imgc):
         h = size // 2
         xp = boundary.pad(x, [(2 * h, 2 * h)] * nd, mode)
         lib = (lambda: pool(pool(xp, size, opening), size, not opening), 0.0)
-        two = (lambda: fs.fused_separable_minmax(
-            fs.fused_separable_minmax(x, sizes, zero, (mode,) * nd, 0.0,
-                                      opening),
-            sizes, zero, (mode,) * nd, 0.0, not opening))
-        row = time_row(
+        rows[label] = time_row(
             label, lambda: fs.fused_separable_open_close(*args),
             lambda: fs.fused_separable_open_close_ref(*args), x,
             bound(x.numel(), minmax_ops=2 * nd * (size - 1)), 0, lib,
@@ -1066,13 +1182,16 @@ def morph_rows(fs, boundary, torch, rows, xc3, imgc):
             "-max_pool(-x), negations timed) on an input padded "
             "beforehand by both windows (pad not timed); no single "
             "PyTorch call computes an opening",
-            n_plain=10, kernel="open_close_f32_kernel")
-        row["two_launch_ms"] = median_ms(two)
-        rows[label] = row
+            n_plain=10, kernel="morph_")
+        two_launch(label, lambda: fs.fused_separable_minmax(
+            fs.fused_separable_minmax(x, sizes, zero, (mode,) * nd, 0.0,
+                                      opening),
+            sizes, zero, (mode,) * nd, 0.0, not opening), x)
 
     def pair_row(label, x, size, mode, combine):
         nd = x.ndim
-        args = (x, (size,) * nd, (0,) * nd, (mode,) * nd, 0.0, combine)
+        sizes, zero = (size,) * nd, (0,) * nd
+        args = (x, sizes, zero, (mode,) * nd, 0.0, combine)
         h = size // 2
         xp = boundary.pad(x, [(h, h)] * nd, mode)
 
@@ -1088,7 +1207,12 @@ def morph_rows(fs, boundary, torch, rows, xc3, imgc):
             f"composite: torch max_pool{nd}d stride 1 for the max and "
             "-max_pool(-x) for the min, then the combine, on an input "
             "padded beforehand (pad not timed)",
-            n_plain=10, kernel="morph_pair_f32_kernel")
+            n_plain=10, kernel="morph_")
+        two_launch(label, lambda: (
+            fs.fused_separable_minmax(x, sizes, zero, (mode,) * nd, 0.0,
+                                      True),
+            fs.fused_separable_minmax(x, sizes, zero, (mode,) * nd, 0.0,
+                                      False)), x)
 
     open_close_row("grey_opening 256^3 size=5 (two-stage)", xc3, 5,
                    "reflect", True)
@@ -1906,26 +2030,43 @@ def main():
     minmax_row("minimum_filter 256^3 size=5", xc3, 5, True)
     minmax_row("maximum_filter 4096^2 size=9", imgc, 9, False)
 
-    def dense_row(label, x, w, origins):
+    def dense_row(label, x, w, origins, mode="reflect", n_plain=20):
         nd = x.ndim
-        args = (x, w, origins, "reflect", 0.0)
+        args = (x, w, origins, mode, 0.0)
         pads = [(s // 2 + o, s - 1 - s // 2 - o)
                 for s, o in zip(w.shape, origins)]
-        xp = boundary.pad(x, pads, "reflect")[None, None]
+        xp = boundary.pad(x, pads, mode)[None, None]
         wt = torch.tensor(w, dtype=torch.float32, device="cuda")[None, None]
         conv = F.conv3d if nd == 3 else F.conv2d
+        launch = lambda: fd.fused_dense_correlate(*args)  # noqa: E731
         rows[label] = time_row(
-            label, lambda: fd.fused_dense_correlate(*args),
-            lambda: fd.fused_dense_correlate_ref(*args), x,
+            label, launch, lambda: fd.fused_dense_correlate_ref(*args), x,
             bound(x.numel(), flops=2 * int(np.count_nonzero(w))),
             1e-5 * float(np.abs(w).sum()),
             (lambda: conv(xp, wt), 1e-5 * float(np.abs(w).sum())),
             f"cuDNN conv{nd}d, TF32 off, on an input padded beforehand "
-            "(pad not timed)", kernel="fused_dense_f32_kernel")
+            "(pad not timed)", n_plain=n_plain, kernel="dense_")
+        bp = fd.blocked_plan(np.asarray(w, np.float32))
+        rows[label]["route"] = ("generic kernel" if bp is None else
+                                f"blocked instance K0 {bp.k0} S {bp.s}")
+        # the generic kernel on the same call, as before the blocked one
+        blocked = fd._blocked_device_plan
+        fd._blocked_device_plan = lambda *a: (None, None)
+        try:
+            rows[label]["generic_kernel_ms"] = kernel_ms(
+                launch, "fused_dense_f32_kernel")
+        finally:
+            fd._blocked_device_plan = blocked
 
     dense_row("correlate 4096^2 9x9", imgc, w9, (0, 0))
     # convolve = correlate with the flipped weights and mirrored origins
     dense_row("convolve 256^3 3x3x3", xc3, np.flip(w333).copy(), (0, 0, 0))
+    # scipy.signal.convolve(4096^2, 31x31, method="direct") on B2: the
+    # kernel on the unpadded image with zero extension (the signal path
+    # pads beforehand and runs it on 4126^2); not on the main path
+    w31 = np.random.default_rng(31).standard_normal((31, 31))
+    dense_row("convolve 4096^2 31x31 direct (signal path)", imgc,
+              np.flip(w31).copy(), (0, 0), mode="constant", n_plain=2)
 
     def rank_row(label, x, fp, rank):
         nd = x.ndim

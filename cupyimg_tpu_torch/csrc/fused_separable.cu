@@ -74,13 +74,18 @@
 #include <math.h>
 #include <stddef.h>
 
+#include <type_traits>
+
 #include "boundary.cuh"
+#include "tile_load.cuh"
 
 namespace {
 
 constexpr int kMaxTaps = 64;
 constexpr int kBX = 32;  // threads along axis 2 (contiguous)
 constexpr int kBY = 8;   // threads along axis 1
+static_assert(kBX == kLoadBX && kBX * kBY == kLoadThreads,
+              "tile_load.cuh's block");
 // output tile width along axis 2: each thread owns columns tx and tx + 32
 // (ops/fused_separable.py:T2)
 constexpr int kT2 = 2 * kBX;
@@ -220,104 +225,6 @@ __device__ __forceinline__ void fold_fixed(const float* w, int kind, Get get,
         a = OP == kMin ? min_nan(a, get(k, j)) : max_nan(a, get(k, j));
       }
       s[j] = a;
-    }
-  }
-}
-
-// The 16-byte chunks of a halo'd tile row: the row starts at column
-// xa = xs rounded down to a multiple of 4 (xs: the first column the tile
-// needs), so sample c of the tile (c >= 0 from xs) is at xs - xa + c.
-__device__ __forceinline__ int floor4(int v) {
-  return v >= 0 ? (v & ~3) : -((3 - v) & ~3);
-}
-
-// The source row and column of every row and column of a halo'd tile:
-// row_map[i] for the h1 rows from r0 on, then (at row_map + h1) the h2
-// columns from c0 on; -1 where the mode gives cval.  The same for every
-// plane, so mapped once per block (mapped per sample, the modulo
-// arithmetic cost more than the filter).
-__device__ __forceinline__ void build_maps(int* row_map, int h1, int r0,
-                                           int n1, int mode1, int h2, int c0,
-                                           int n2, int mode2) {
-  const int tid = threadIdx.y * kBX + threadIdx.x;
-  for (int i = tid; i < h1 + h2; i += kBX * kBY) {
-    bool oob = false;
-    const int m = i < h1 ? map_index(r0 + i, n1, mode1, oob)
-                         : map_index(c0 + i - h1, n2, mode2, oob);
-    row_map[i] = oob ? -1 : m;
-  }
-}
-
-// Start the copies of the halo'd tile of input plane i0 (an axis-0
-// index, mapped here by mode0) into buf (h1 x h2): every in-range sample
-// as an asynchronous 4-byte cp.async, every cval sample as a plain
-// store.  The caller commits the group.
-__device__ __forceinline__ void load_plane(const float* __restrict__ x,
-                                           float* buf, int i0, int n0,
-                                           int mode0, int n1, int n2,
-                                           const int* row_map,
-                                           const int* col_map, int h1,
-                                           int h2, float cval) {
-  bool oob0 = false;
-  const int m0 = map_index(i0, n0, mode0, oob0);
-  const float* plane = x + (size_t)m0 * n1 * n2;
-  for (int r = threadIdx.y; r < h1; r += kBY) {
-    const int m1 = oob0 ? -1 : row_map[r];
-    const float* row = plane + (size_t)max(m1, 0) * n2;
-    for (int c = threadIdx.x; c < h2; c += kBX) {
-      const int m2 = col_map[c];
-      if (m1 < 0 || m2 < 0) {
-        buf[r * h2 + c] = cval;
-      } else {
-        __pipeline_memcpy_async(buf + r * h2 + c, row + m2, sizeof(float));
-      }
-    }
-  }
-}
-
-// Start the copies of the halo'd tile of input plane i0 (an axis-0
-// index, mapped here by mode0) into buf (h1 rows of 4 * nch words, row r
-// from column xa = floor4(xs) on, xs the tile's first column): a 16-byte
-// chunk inside the row as one cp.async where rows may be read so, every
-// other sample through the column map (col_map[c] for column xs + c, -1
-// for cval) as a 4-byte cp.async or a cval store.  Samples left of xs or
-// right of the tile's h2 columns are never read (set to 0).  The caller
-// commits the group.
-__device__ __forceinline__ void load_plane16(
-    const float* __restrict__ x, float* buf, int i0, int n0, int mode0,
-    int n1, int n2, const int* row_map, const int* col_map, int h1, int h2,
-    int nch, int xs, int vec, float cval) {
-  bool oob0 = false;
-  const int m0 = map_index(i0, n0, mode0, oob0);
-  const float* plane = x + (size_t)m0 * n1 * n2;
-  const int xa = floor4(xs);
-  for (int i = threadIdx.y * kBX + threadIdx.x; i < h1 * nch;
-       i += kBX * kBY) {
-    const int r = i / nch, ch = i - r * nch;
-    const int m1 = oob0 ? -1 : row_map[r];
-    float* dst = buf + r * 4 * nch + 4 * ch;
-    if (m1 < 0) {
-      dst[0] = cval;
-      dst[1] = cval;
-      dst[2] = cval;
-      dst[3] = cval;
-      continue;
-    }
-    const float* row = plane + (size_t)m1 * n2;
-    const int c = xa + 4 * ch;
-    if (vec && c >= 0 && c + 4 <= n2) {
-      __pipeline_memcpy_async(dst, row + c, 16);
-      continue;
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int t = c + e - xs;
-      const int m2 = t >= 0 && t < h2 ? col_map[t] : -2;
-      if (m2 >= 0) {
-        __pipeline_memcpy_async(dst + e, row + m2, sizeof(float));
-      } else {
-        dst[e] = m2 == -1 ? cval : 0.f;
-      }
     }
   }
 }
@@ -786,23 +693,56 @@ int launch(const float* x, float* y, const Params& p, const int* plan,
 // once, 8 bytes a voxel (40 us for 256^3 at 3.35 TB/s), against
 // 2 * sum(K - 1) min/max instructions a voxel (two stages, or two folds).
 // What the design does about it: one launch where scipy's route takes
-// two passes over device memory (three for the pair), each stage's or
-// fold's intermediates kept in shared memory.  Simple first: two planes
-// in flight (the doubly halo'd two-stage tile needs the room); the
-// two-stage kernel computes two columns per thread and step, the pair
-// kernel one; PERF.md has the times.
+// two passes over device memory (three for the pair), and
+//
+// - every window fold of K >= 4 samples runs over a thread's run of L
+//   consecutive outputs by van Herk / Gil-Werman (seg_fold): the samples
+//   all L windows share are folded once, the rest as a suffix and a
+//   prefix fold, so (K + 3L - 6) / L extremum ops an output instead of
+//   K - 1 (3.4 for K = 9, L = 8), each sample read once for the run;
+// - a 2-D array takes a rows path (morph_rows_f32_kernel) built on B1's:
+//   a block owns a strip of output columns and marches down its rows 16
+//   a step, so that each input row is read and filtered once and the
+//   vertical halo costs (R + 2(K1 - 1)) / R of a block's R rows, not the
+//   doubly halo'd tile of every 16 rows;
+// - a 3-D array takes a planes path (morph_planes_f32_kernel) that
+//   marches along axis 0 with B1's 16-byte loads, up to four planes in
+//   flight, and three barriers a plane step (two for the pair); for an
+//   axis-0 window of 1, 3 or 5 each thread keeps the axis-0 window of
+//   each stage in registers, the plane loop unrolled by it, with no
+//   shared ring; any other window keeps a ring of K0 planes in shared
+//   memory, each thread reading only its own cells;
+// - the runs along a row read their samples as aligned float4 chunks
+//   (run4) where the tile starts on a 16-byte boundary: the planner
+//   shifts the tiles (the rows path's strips always, the planes path's
+//   where that adds no tile), since scalar loads by lanes four columns
+//   apart conflict 4 ways in the banks.  A run may read samples past its
+//   row's end (the next row or buffer, inside the block's shared
+//   memory): they feed only outputs it discards.
+//
+// Extremum ops are min.NaN / max.NaN: associative and exact, so that the
+// fold order of the runs gives the plain version's values bit for bit
+// (NaN included).
 // ---------------------------------------------------------------------------
-
-// input planes in flight per block in the morphology kernels
-// (ops/fused_separable.py:MORPH_STAGES): two, so that the two-stage
-// kernel's doubly halo'd tile leaves room for wider windows
-constexpr int kMorphStages = 2;
 
 // the kernels' kinds, as ops/fused_separable.py:_MORPH_KINDS assigns them
 constexpr int kOpening = 0;  // min, then max
 constexpr int kClosing = 1;  // max, then min
 constexpr int kGrad = 2;     // max - min
 constexpr int kLaplace = 3;  // max + min - 2x
+
+// rows of a thread's axis-1 run on the planes path (ops/fused_separable.py:
+// MORPH_L)
+constexpr int kMorphL = 4;
+static_assert(kMorphL == 4, "run4 and store4 take runs of 4");
+// two-stage planes path with a register window: stage-1 axis-1 runs a
+// thread holds (ops/fused_separable.py:MORPH_ITEMS)
+constexpr int kMorphItems = 2;
+// blocks an SM holds (ops/fused_separable.py:_MORPH_BLOCKS, the planner's
+// waves), by kind: the register budgets that measured fastest on an H100
+// (the two-stage planes kernel spills at three blocks)
+template <int KIND> constexpr int kMorphBlocksPerSM = KIND < 2 ? 2 : 3;
+template <int KIND> constexpr int kMorphRowBlocksPerSM = KIND < 2 ? 4 : 3;
 
 struct MorphParams {
   int n[3];
@@ -811,286 +751,718 @@ struct MorphParams {
   int lo2[3];  // window leads of stage 2
   int mode[3];
   float cval;
-  int t1;  // output tile rows along axis 1 (the tile is kT2 wide)
-  int z;   // output planes of axis 0 per block
+  int t1;      // planes: output tile rows; rows: output rows a block
+  int t2;      // output columns of a tile (planes: kT2) or strip (rows)
+  int z;       // planes: output planes of axis 0 a block
+  int stages;  // planes: input planes in flight (4, 2 or 1)
+  int vec;     // rows may be read in 16-byte chunks
+  int shift;   // tiles or strips start this many columns left of column 0
 };
 
-template <int OP>
-__device__ __forceinline__ float extremum(float a, float b) {
-  return OP == kMin ? min_nan(a, b) : max_nan(a, b);
+struct MinOp {
+  using T = float;
+  static __device__ __forceinline__ T op(T a, T b) { return min_nan(a, b); }
+  static __device__ __forceinline__ T from(float v) { return v; }
+};
+
+struct MaxOp {
+  using T = float;
+  static __device__ __forceinline__ T op(T a, T b) { return max_nan(a, b); }
+  static __device__ __forceinline__ T from(float v) { return v; }
+};
+
+// the pair's min and max folds side by side, as (min, max)
+struct MinMaxOp {
+  using T = float2;
+  static __device__ __forceinline__ T op(T a, T b) {
+    return make_float2(min_nan(a.x, b.x), max_nan(a.y, b.y));
+  }
+  static __device__ __forceinline__ T from(float v) {
+    return make_float2(v, v);
+  }
+};
+
+// stage 1's and stage 2's folds (the pair has one stage: its Second is
+// never called)
+template <int KIND> struct MorphOps;
+template <> struct MorphOps<kOpening> { using First = MinOp; using Second = MaxOp; };
+template <> struct MorphOps<kClosing> { using First = MaxOp; using Second = MinOp; };
+template <> struct MorphOps<kGrad> { using First = MinMaxOp; using Second = MinOp; };
+template <> struct MorphOps<kLaplace> { using First = MinMaxOp; using Second = MinOp; };
+
+// The Op-fold of L consecutive windows of K >= L samples, window j over
+// get(j .. j + K - 1), by van Herk / Gil-Werman: the core, samples
+// L - 1 .. K - 1, which every window holds, folded once; a suffix fold
+// of samples 0 .. L - 2 and a prefix fold of K .. K + L - 2 give each
+// window its two ends.  K + 3L - 6 ops for the L outputs, each sample
+// read once.
+template <class Op, int L, class Get>
+__device__ __forceinline__ void seg_fold(int K, Get get,
+                                         typename Op::T (&out)[L]) {
+  using T = typename Op::T;
+  T core = get(L - 1);
+  for (int m = L; m < K; ++m) core = Op::op(core, get(m));
+  T suf[L - 1];  // suf[j]: samples j .. L - 2
+  suf[L - 2] = get(L - 2);
+#pragma unroll
+  for (int j = L - 3; j >= 0; --j) suf[j] = Op::op(get(j), suf[j + 1]);
+  out[0] = Op::op(suf[0], core);
+  T pre = get(K);  // samples K .. K + j - 1, for window j
+#pragma unroll
+  for (int j = 1; j < L - 1; ++j) {
+    out[j] = Op::op(Op::op(suf[j], core), pre);
+    pre = Op::op(pre, get(K + j));
+  }
+  out[L - 1] = Op::op(core, pre);
 }
 
-// dst[r * ldd + c] = the OP-fold of src[r * lds + c + k * step] over
-// k in [0, K), for r < rows and c < cols.  A thread computes columns c
-// and c + 32 of a row per step (where c + 32 is past the end it computes
-// column c twice and stores it once), owning the same cells on every
-// call.
-template <int OP>
-__device__ __forceinline__ void fold_plane(const float* src, int lds,
-                                           int step, int K, float* dst,
-                                           int ldd, int rows, int cols) {
-  for (int r = threadIdx.y; r < rows; r += kBY) {
-    for (int c = threadIdx.x; c < cols; c += 2 * kBX) {
-      const int d = c + kBX < cols ? kBX : 0;
-      const float* s = src + r * lds + c;
-      float v0 = s[0], v1 = s[d];
-#pragma unroll 4
-      for (int k = 1; k < K; ++k) {
-        v0 = extremum<OP>(v0, s[k * step]);
-        v1 = extremum<OP>(v1, s[k * step + d]);
-      }
-      dst[r * ldd + c] = v0;
-      if (d) dst[r * ldd + c + d] = v1;
+// The Op-fold of L consecutive windows of K samples, window j over
+// get(j .. j + K - 1): seg_fold over the run, or over runs of 4 for
+// 4 <= K < L; below 4 samples, from a register window.
+template <class Op, int L, class Get>
+__device__ __forceinline__ void run_fold(int K, Get get,
+                                         typename Op::T (&out)[L]) {
+  using T = typename Op::T;
+  if (K >= L) {
+    seg_fold<Op, L>(K, get, out);
+  } else if (L > 4 && K >= 4) {
+#pragma unroll
+    for (int h = 0; h < L / 4; ++h) {
+      T o[4];
+      seg_fold<Op, 4>(K, [&](int m) { return get(4 * h + m); }, o);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) out[4 * h + j] = o[j];
+    }
+  } else {
+    T v[L + 2];
+#pragma unroll
+    for (int m = 0; m < L + 2; ++m) {
+      if (m < L + K - 1) v[m] = get(m);
+    }
+#pragma unroll
+    for (int j = 0; j < L; ++j) {
+      T a = v[j];
+      if (K > 1) a = Op::op(a, v[j + 1]);
+      if (K > 2) a = Op::op(a, v[j + 2]);
+      out[j] = a;
     }
   }
 }
 
-// The OP-fold of a ring of K planes (each `plane` floats apart) at cell
-// `at`, from slot `first` on.
-template <int OP>
-__device__ __forceinline__ float fold_ring(const float* ring, int plane,
-                                           int at, int K, int first) {
-  float v = ring[first * plane + at];
-  for (int k = 1; k < K; ++k) {
-    int s = first + k;
-    if (s >= K) s -= K;
-    v = extremum<OP>(v, ring[s * plane + at]);
-  }
-  return v;
+// The horizontal fold of a rows-path thread: 8 outputs of a row
+// deinterleaved by 8 (B1's rows path stores them so), the thread's sample
+// m at rb[(m % 8) * nu + m / 8].
+template <class Op>
+__device__ __forceinline__ void hfold_stage(const float* rb, int nu, int K,
+                                            typename Op::T (&v)[8]) {
+  run_fold<Op, 8>(K, [&](int m) {
+    return Op::from(rb[(m & 7) * nu + (m >> 3)]);
+  }, v);
 }
 
-// fold_ring at cells `at` and `at + d` at once.
-template <int OP>
-__device__ __forceinline__ void fold_ring2(const float* ring, int plane,
-                                           int at, int d, int K, int first,
-                                           float& v0, float& v1) {
-  const float* p = ring + first * plane + at;
-  v0 = p[0];
-  v1 = p[d];
-#pragma unroll 4
-  for (int k = 1; k < K; ++k) {
-    int s = first + k;
-    if (s >= K) s -= K;
-    p = ring + s * plane + at;
-    v0 = extremum<OP>(v0, p[0]);
-    v1 = extremum<OP>(v1, p[d]);
+// A run of 4 outputs of the Op-fold of windows of K samples along a row,
+// sample m of the run at s[m]: where s is 16-byte aligned and K is 3, 5,
+// 7 or 9, the samples as aligned float4 chunks into registers (a warp's
+// lanes, four columns apart, read them without bank conflicts, where
+// scalar loads four words apart conflict 4 ways) and the fold unrolled;
+// otherwise by run_fold from shared memory.
+template <class Op>
+__device__ __forceinline__ void run4(int K, const float* s, bool aligned,
+                                     typename Op::T (&v)[4]) {
+  auto fixed = [&](auto kc) {
+    constexpr int Kc = decltype(kc)::value;
+    constexpr int NC = (Kc + 6) / 4;  // chunks of the K + 3 samples
+    float w[4 * NC];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const float4 f = reinterpret_cast<const float4*>(s)[c];
+      w[4 * c] = f.x;
+      w[4 * c + 1] = f.y;
+      w[4 * c + 2] = f.z;
+      w[4 * c + 3] = f.w;
+    }
+    run_fold<Op, 4>(Kc, [&](int m) { return Op::from(w[m]); }, v);
+  };
+  switch (aligned ? K : 0) {
+    case 3: fixed(std::integral_constant<int, 3>{}); break;
+    case 5: fixed(std::integral_constant<int, 5>{}); break;
+    case 7: fixed(std::integral_constant<int, 7>{}); break;
+    case 9: fixed(std::integral_constant<int, 9>{}); break;
+    default:
+      run_fold<Op, 4>(K, [&](int m) { return Op::from(s[m]); }, v);
   }
 }
 
-// Two-stage opening (OP1 = kMin) or closing (OP1 = kMax), the contract of
-// ops/fused_separable.py:fused_separable_open_close_ref:
+// v[0..3] to the 16-byte aligned dst, as float4 stores.
+__device__ __forceinline__ void store4(float* dst, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ void store4(float2* dst, const float2 (&v)[4]) {
+  float4* d = reinterpret_cast<float4*>(dst);
+  d[0] = make_float4(v[0].x, v[0].y, v[1].x, v[1].y);
+  d[1] = make_float4(v[2].x, v[2].y, v[3].x, v[3].y);
+}
+
+// The pair's output from its (min, max) fold: each operation rounded on
+// its own (no contraction into an FMA), as the plain version computes it.
+template <int KIND>
+__device__ __forceinline__ float combine(float2 mm, const float* x,
+                                         size_t i) {
+  return KIND == kGrad
+             ? __fsub_rn(mm.y, mm.x)
+             : __fsub_rn(__fadd_rn(mm.y, mm.x), __fmul_rn(2.0f, x[i]));
+}
+
+// The two-stage contract (ops/fused_separable.py:
+// fused_separable_open_close_ref), OP1 min for an opening, max for a
+// closing:
 //
 //   xe = x extended ONCE by both stages' windows added together;
 //   s1 = the OP1 box fold of xe, over x's domain widened by stage 2's
 //        window (no re-extension in between);
 //   y  = the other op's box fold of s1, back to x's shape.
 //
-// The block marches along axis 0 as the separable kernel does.  Its input
-// tile is halo'd by both windows, (T1 + 2(K1-1)) x (64 + 2(K2-1)); stage 1
-// folds axes 2 and 1 of each plane over the whole tile into a ring of K0
-// planes, and once the ring is full its axis-0 fold gives one stage-1
-// plane of (T1 + K1-1) x (64 + K2-1), still halo'd by stage 2's window.
-// Stage 2 folds axes 2 and 1 of that plane into a second ring of K0
-// planes, whose axis-0 fold gives one output plane.
-template <int OP1>
-__global__ void __launch_bounds__(kBX * kBY)
-open_close_f32_kernel(const float* __restrict__ x, float* __restrict__ y,
+// The pair contract (fused_separable_morph_pair_ref): x extended once;
+// the min and max box folds of that one extension give
+//   kGrad: max - min;   kLaplace: (max + min) - 2x, x read at the output.
+
+// The rows path, a 2-D array run as (1, n1, n2).  Block (bx): output
+// columns [x0, x0 + ow), rows [r0, r0 + t1).  A horizontal pass computes
+// 128 columns of 16 rows (thread: row tid / 16, columns 8 (tid % 16) on);
+// a vertical pass 8 rows of 128 columns (thread: column tid % 128, rows
+// 8 (tid / 128) on).  Shared memory, in words: stage buffers of 16 input
+// rows, deinterleaved by 8 as B1's rows path stores them (one for the
+// two-stage kernel, two for the pair), then
+// - two-stage: ring1 (stage 1's horizontal fold, 16 (lag + 1) rows of
+//   128), s1 (16 stage-1 rows, deinterleaved by 8) and ring2 (stage 2's
+//   horizontal fold, 16 (lag + 1) rows of 128); ow = 129 - K2 rounded
+//   down to a multiple of 4, so that stage 1's 128 columns hold stage 2's
+//   halo; three barriers a step;
+// - pair: one ring of (min, max) pairs, 16 (lag + 2) rows of 128; one
+//   barrier a step.
+template <int KIND>
+__global__ void __launch_bounds__(kRowThreads, kMorphRowBlocksPerSM<KIND>)
+morph_rows_f32_kernel(const float* __restrict__ x, float* __restrict__ y,
                       const __grid_constant__ MorphParams p) {
-  constexpr int OP2 = OP1 == kMin ? kMax : kMin;
-  extern __shared__ float smem[];
-  const int n0 = p.n[0], n1 = p.n[1], n2 = p.n[2];
-  const int K0 = p.k[0], K1 = p.k[1], K2 = p.k[2];
-  const int T1 = p.t1;
-  const int W1 = T1 + K1 - 1, W2 = kT2 + K2 - 1;  // a stage-1 plane
-  const int H1 = W1 + K1 - 1, H2 = W2 + K2 - 1;   // an input tile
-  int* row_map = reinterpret_cast<int*>(smem);     // H1
-  int* col_map = row_map + H1;                     // H2
-  float* s_in = reinterpret_cast<float*>(col_map + H2);  // kMorphStages tiles
-  float* s_mid = s_in + kMorphStages * H1 * H2;  // H1 x W2, after axis 2
-  float* ring1 = s_mid + H1 * W2;                // K0 planes of W1 x W2
-  float* s_p = ring1 + K0 * W1 * W2;             // W1 x W2, stage 1's plane
-  float* s_mid2 = s_p + W1 * W2;                 // W1 x kT2, after axis 2
-  float* ring2 = s_mid2 + W1 * kT2;              // K0 planes of T1 x kT2
-
-  const int tiles2 = (n2 + kT2 - 1) / kT2;
-  const int o1 = (blockIdx.x / tiles2) * T1;
-  const int o2 = (blockIdx.x % tiles2) * kT2;
-  const int z0 = blockIdx.y * p.z;
-  const int z1 = min(z0 + p.z, n0);
-  const int nplanes = z1 - z0 + 2 * (K0 - 1);
-  const int lead0 = p.lo1[0] + p.lo2[0];
-  build_maps(row_map, H1, o1 - p.lo1[1] - p.lo2[1], n1, p.mode[1], H2,
-             o2 - p.lo1[2] - p.lo2[2], n2, p.mode[2]);
-  __syncthreads();
-
-  auto issue = [&](int e) {
-    if (e < nplanes) {
-      load_plane(x, s_in + (e % kMorphStages) * H1 * H2, z0 - lead0 + e, n0,
-                 p.mode[0], n1, n2, row_map, col_map, H1, H2, p.cval);
-    }
-    __pipeline_commit();
+  constexpr bool kTwo = KIND == kOpening || KIND == kClosing;
+  using Op1 = typename MorphOps<KIND>::First;
+  using Op2 = typename MorphOps<KIND>::Second;
+  extern __shared__ __align__(16) float msmem[];
+  const int n1 = p.n[1], n2 = p.n[2];
+  const int K1 = p.k[1], K2 = p.k[2];
+  const int mode1 = p.mode[1], mode2 = p.mode[2];
+  const float cval = p.cval;
+  const int vec = p.vec;
+  const int ow = p.t2;
+  const int lead1 = p.lo1[1] + (kTwo ? p.lo2[1] : 0);
+  const int lead2 = p.lo1[2] + (kTwo ? p.lo2[2] : 0);
+  // units of a stage row: samples up to 3 + 127 + K2 - 1, 2 modulo 4
+  const int nu = (((K2 + 130 + 7) >> 3) + 1) / 4 * 4 + 2;
+  const int stage_words = kRowStep * 8 * nu;
+  const int lag = (K1 - 1 + kRowStep - 1) / kRowStep;  // steps, a stage
+  const int tid = threadIdx.x;
+  // strips of ow columns (a multiple of 4) from column -a on, a = -lead2
+  // modulo 4 (the planner's shift), so that every block's input strip
+  // starts on a 16-byte boundary: the horizontal passes' sample offsets
+  // are constants
+  const int a = p.shift;
+  const int tiles2 = (n2 + a + ow - 1) / ow;
+  const int x0 = (blockIdx.x % tiles2) * ow - a;
+  const int r0 = (blockIdx.x / tiles2) * p.t1;
+  const int nrows = min(p.t1, n1 - r0);  // output rows of this block
+  const int groups = (nrows + kRowStep - 1) / kRowStep;
+  const int steps = groups + (kTwo ? 2 : 1) * lag;
+  const int xa = x0 - lead2;  // a multiple of 4
+  const int rho = tid >> 4, q = tid & 15;          // horizontal passes
+  const int c = tid & (kRowW - 1), half = tid >> 7;  // vertical passes
+  const bool col_out = c < ow && x0 + c >= 0 && x0 + c < n2;
+  // a vertical run's sample m: the ring row base + m, which wraps only
+  // past the run's first 8 rows (base is a multiple of 8, the ring of 16)
+  auto ring_at = [&](const auto* ring, int ring_rows, int base, int m) {
+    if (m < 8) return ring[(base + m) * kRowW + c];
+    int r = base + m;
+    if (r >= ring_rows) r -= ring_rows;
+    return ring[r * kRowW + c];
   };
 
-  // Barriers: the stage buffer plane e + 1 goes to was last read by the
-  // axis-2 fold of plane e - 1, which a barrier follows; each of s_mid,
-  // s_p and s_mid2 is written only after the barrier that follows its
-  // readers of the plane before.  A thread reads only its own ring cells.
-  for (int e = 0; e < kMorphStages - 1; ++e) issue(e);
-  for (int e = 0; e < nplanes; ++e) {
-    issue(e + kMorphStages - 1);
-    __pipeline_wait_prior(kMorphStages - 1);
-    __syncthreads();
-    fold_plane<OP1>(s_in + (e % kMorphStages) * H1 * H2, H2, 1, K2, s_mid,
-                    W2, H1, W2);
-    __syncthreads();
-    const int p1 = e - (K0 - 1);  // stage-1 plane, once the ring is full
-    const int slot = e % K0, first = (e + 1) % K0;
-    // columns c and c + 32 per thread and step, as fold_plane
-    for (int r = threadIdx.y; r < W1; r += kBY) {
-      for (int c = threadIdx.x; c < W2; c += 2 * kBX) {
-        const int d = c + kBX < W2 ? kBX : 0;
-        const float* s = s_mid + r * W2 + c;
-        float v0 = s[0], v1 = s[d];
-#pragma unroll 4
-        for (int k = 1; k < K1; ++k) {
-          v0 = extremum<OP1>(v0, s[k * W2]);
-          v1 = extremum<OP1>(v1, s[k * W2 + d]);
+  // unit i of a step: input row i / nu, columns 8 (i % nu) .. + 7
+  float4 pre[kRowPer][2];
+  auto fetch = [&](int t) {
+#pragma unroll
+    for (int u = 0; u < kRowPer; ++u) {
+      const int i = tid + u * kRowThreads;
+      if (i >= kRowStep * nu) break;
+      const int rr = i / nu, ch = i - rr * nu;
+      bool oob = false;
+      const int m1 = map_index(r0 - lead1 + kRowStep * t + rr, n1, mode1, oob);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = xa + 8 * ch + 4 * h;
+        float4 v = make_float4(cval, cval, cval, cval);
+        if (!oob) {
+          const float* row = x + (size_t)m1 * n2;
+          if (vec && col >= 0 && col + 4 <= n2) {
+            v = __ldg(reinterpret_cast<const float4*>(row + col));
+          } else {
+            float e4[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              bool o = false;
+              const int m2 = map_index(col + e, n2, mode2, o);
+              e4[e] = o ? cval : __ldg(row + m2);
+            }
+            v = make_float4(e4[0], e4[1], e4[2], e4[3]);
+          }
         }
-        const int at = r * W2 + c;
-        ring1[slot * W1 * W2 + at] = v0;
-        if (d) ring1[slot * W1 * W2 + at + d] = v1;
-        if (p1 >= 0) {
-          fold_ring2<OP1>(ring1, W1 * W2, at, d, K0, first, v0, v1);
-          s_p[at] = v0;
-          if (d) s_p[at + d] = v1;
-        }
+        pre[u][h] = v;
       }
     }
-    if (p1 < 0) continue;  // the same for every thread of the block
-    __syncthreads();
-    fold_plane<OP2>(s_p, W2, 1, K2, s_mid2, kT2, W1, kT2);
-    __syncthreads();
-    const int zo = z0 + p1 - (K0 - 1);
-    const int slot2 = p1 % K0, first2 = (p1 + 1) % K0;
-    // every row of kT2 = 2 * kBX columns: both columns always exist
-    for (int r = threadIdx.y; r < T1; r += kBY) {
-      const int c = threadIdx.x, at = r * kT2 + c;
-      const float* s = s_mid2 + at;
-      float v0 = s[0], v1 = s[kBX];
-#pragma unroll 4
-      for (int k = 1; k < K1; ++k) {
-        v0 = extremum<OP2>(v0, s[k * kT2]);
-        v1 = extremum<OP2>(v1, s[k * kT2 + kBX]);
+  };
+  auto put = [&](float* stage) {
+#pragma unroll
+    for (int u = 0; u < kRowPer; ++u) {
+      const int i = tid + u * kRowThreads;
+      if (i >= kRowStep * nu) break;
+      const int rr = i / nu, ch = i - rr * nu;
+      float* dst = stage + rr * 8 * nu + ch;
+      dst[0] = pre[u][0].x;
+      dst[nu] = pre[u][0].y;
+      dst[2 * nu] = pre[u][0].z;
+      dst[3 * nu] = pre[u][0].w;
+      dst[4 * nu] = pre[u][1].x;
+      dst[5 * nu] = pre[u][1].y;
+      dst[6 * nu] = pre[u][1].z;
+      dst[7 * nu] = pre[u][1].w;
+    }
+  };
+  if constexpr (kTwo) {
+    const int ring_rows = kRowStep * (lag + 1);
+    // units of an s1 row: samples up to 127 + K2 - 1, 2 modulo 4
+    const int nu1 = (((K2 + 134) >> 3) + 1) / 4 * 4 + 2;
+    float* stage = msmem;
+    float* ring1 = stage + stage_words;
+    float* s1 = ring1 + ring_rows * kRowW;
+    float* ring2 = s1 + kRowStep * 8 * nu1;
+    // Barriers: put(t) rewrites the stage buffer after the barrier that
+    // follows hfold(t - 1); ring1's rows of step t + 1 are written after
+    // the barrier that follows the vertical fold of step t; s1 and ring2
+    // alike; the vertical fold of stage 2 reads ring2 one step late, in
+    // the interval of stage 1's horizontal fold, which writes ring1 only.
+    fetch(0);
+    for (int t = 0; t <= steps; ++t) {
+      if (t < steps) {
+        put(stage);
+        if (t + 1 < steps) fetch(t + 1);  // in flight during the passes
       }
-      ring2[slot2 * T1 * kT2 + at] = v0;
-      ring2[slot2 * T1 * kT2 + at + kBX] = v1;
-      if (zo >= z0 && o1 + r < n1) {
-        fold_ring2<OP2>(ring2, T1 * kT2, at, kBX, K0, first2, v0, v1);
-        float* dst = y + ((size_t)zo * n1 + o1 + r) * n2 + o2 + c;
-        if (o2 + c < n2) dst[0] = v0;
-        if (o2 + c + kBX < n2) dst[kBX] = v1;
+      __syncthreads();
+      const int g2 = t - 1 - 2 * lag;  // output rows 16 g2 .. + 15
+      if (g2 >= 0) {
+        const int o = kRowStep * g2 + 8 * half;
+        if (o < nrows) {
+          const int base = o % ring_rows;
+          float v[8];
+          run_fold<Op2, 8>(K1, [&](int m) {
+            return ring_at(ring2, ring_rows, base, m);
+          }, v);
+          if (col_out) {
+            float* dst = y + (size_t)(r0 + o) * n2 + x0 + c;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              if (o + j < nrows) dst[(size_t)j * n2] = v[j];
+            }
+          }
+        }
+      }
+      if (t == steps) break;
+      {
+        float v[8];
+        hfold_stage<Op1>(stage + rho * 8 * nu + q, nu, K2, v);
+        float* dst = ring1 + ((kRowStep * t + rho) % ring_rows) * kRowW + 8 * q;
+        *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+        *reinterpret_cast<float4*>(dst + 4) = make_float4(v[4], v[5], v[6], v[7]);
+      }
+      __syncthreads();
+      const int g1 = t - lag;  // stage-1 rows 16 g1 .. + 15
+      if (g1 >= 0) {
+        const int base = (kRowStep * g1 + 8 * half) % ring_rows;
+        float v[8];
+        run_fold<Op1, 8>(K1, [&](int m) {
+          return ring_at(ring1, ring_rows, base, m);
+        }, v);
+        float* dst = s1 + 8 * half * 8 * nu1 + (c & 7) * nu1 + (c >> 3);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) dst[j * 8 * nu1] = v[j];
+      }
+      __syncthreads();
+      if (g1 >= 0) {
+        float v[8];
+        hfold_stage<Op2>(s1 + rho * 8 * nu1 + q, nu1, K2, v);
+        float* dst = ring2 + ((kRowStep * g1 + rho) % ring_rows) * kRowW + 8 * q;
+        *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+        *reinterpret_cast<float4*>(dst + 4) = make_float4(v[4], v[5], v[6], v[7]);
+      }
+    }
+  } else {
+    // a ring of lag + 2 groups: the horizontal fold of step t writes the
+    // group the vertical fold of step t - 1, in the same interval, does
+    // not read
+    const int ring_rows = kRowStep * (lag + 2);
+    float2* ring = reinterpret_cast<float2*>(msmem + 2 * stage_words);
+    // Barriers: one a step.  put(t) fills the stage buffer hfold(t - 2)
+    // read, before the barrier of step t - 1.
+    fetch(0);
+    for (int t = 0; t <= steps; ++t) {
+      float* stage = msmem + (t & 1) * stage_words;
+      if (t < steps) {
+        put(stage);
+        if (t + 1 < steps) fetch(t + 1);
+      }
+      __syncthreads();
+      const int g = t - 1 - lag;  // output rows 16 g .. + 15
+      if (g >= 0) {
+        const int o = kRowStep * g + 8 * half;
+        if (o < nrows) {
+          const int base = o % ring_rows;
+          float2 v[8];
+          run_fold<MinMaxOp, 8>(K1, [&](int m) {
+            return ring_at(ring, ring_rows, base, m);
+          }, v);
+          if (col_out) {
+            const size_t i = (size_t)(r0 + o) * n2 + x0 + c;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              if (o + j < nrows) {
+                y[i + (size_t)j * n2] = combine<KIND>(v[j], x, i + (size_t)j * n2);
+              }
+            }
+          }
+        }
+      }
+      if (t == steps) break;
+      float2 v[8];
+      hfold_stage<MinMaxOp>(stage + rho * 8 * nu + q, nu, K2, v);
+      float2* dst = ring + ((kRowStep * t + rho) % ring_rows) * kRowW + 8 * q;
+#pragma unroll
+      for (int j = 0; j < 8; j += 2) {
+        *reinterpret_cast<float4*>(dst + j) =
+            make_float4(v[j].x, v[j].y, v[j + 1].x, v[j + 1].y);
       }
     }
   }
 }
 
-// Pair fold, the contract of
-// ops/fused_separable.py:fused_separable_morph_pair_ref: x is extended
-// once; the min and max box folds of that one extension, side by side
-// (two accumulators per output, a ring of (min, max) planes), give
-//   kGrad:    max - min
-//   kLaplace: (max + min) - 2x, x read from device memory at the output,
-// each operation rounded on its own (no contraction into an FMA), as the
-// plain version computes it.
-template <int KIND>
-__global__ void __launch_bounds__(kBX * kBY)
-morph_pair_f32_kernel(const float* __restrict__ x, float* __restrict__ y,
-                      const __grid_constant__ MorphParams p) {
-  extern __shared__ float smem[];
+// The planes path, a 3-D array.  Block (bx, by): output planes
+// [z0, z0 + z) of axis 0 over the tile [o1, o1 + T1) x [o2, o2 + 64),
+// marching along axis 0 over the input planes the block's outputs need.
+// Per input plane: the input tile, halo'd by both stages' windows
+// (H1 x H2), arrives by 16-byte cp.async; the axis-2 fold of stage 1 (of
+// the pair: both folds) over the tile's rows, in runs of 4 columns a
+// thread (run_fold), goes to s_a (H1 x W2); the axis-1 fold of s_a's
+// columns, in runs of 4 rows a thread, goes into the stage's axis-0
+// window, and once the window holds K0 planes its fold is one stage-1
+// plane (W1 x W2, still halo'd by stage 2's window) in s_p; the pair
+// combines it into an output plane.  Stage 2 folds s_p alike: axis 2 in
+// runs of 4 columns into s_b (W1 x 64), axis 1 in runs of 4 rows into
+// its axis-0 window, whose fold is an output plane.  KZ: the axis-0 window in registers (K0 == KZ: 1, 3 or
+// 5; the plane loop unrolled by KZ, so that every window index is a
+// constant), or 0: rings of K0 planes in shared memory.
+template <int KIND, int KZ>
+__global__ void __launch_bounds__(kBX * kBY, kMorphBlocksPerSM<KIND>)
+morph_planes_f32_kernel(const float* __restrict__ x, float* __restrict__ y,
+                        const __grid_constant__ MorphParams p) {
+  constexpr bool kTwo = KIND == kOpening || KIND == kClosing;
+  using Op1 = typename MorphOps<KIND>::First;
+  using Op2 = typename MorphOps<KIND>::Second;
+  using T = typename Op1::T;
+  constexpr int kThreads = kBX * kBY;
+  constexpr int L = kMorphL;
+  constexpr int NI = kTwo ? kMorphItems : 1;  // stage-1 items in registers
+  constexpr int KW = KZ > 0 ? KZ : 1;
+  extern __shared__ __align__(16) float smem[];
   const int n0 = p.n[0], n1 = p.n[1], n2 = p.n[2];
   const int K0 = p.k[0], K1 = p.k[1], K2 = p.k[2];
-  const int T1 = p.t1, TT = T1 * kT2;
-  const int H1 = T1 + K1 - 1, H2 = kT2 + K2 - 1;
-  int* row_map = reinterpret_cast<int*>(smem);     // H1
-  int* col_map = row_map + H1;                     // H2
-  float* s_in = reinterpret_cast<float*>(col_map + H2);  // kMorphStages tiles
-  float* s_mn = s_in + kMorphStages * H1 * H2;  // H1 x kT2, after axis 2
-  float* s_mx = s_mn + H1 * kT2;
-  float* ring_mn = s_mx + H1 * kT2;  // K0 planes of T1 x kT2
-  float* ring_mx = ring_mn + K0 * TT;
+  const int T1 = p.t1;
+  const int stages = p.stages;
+  // stage 1's plane (the pair's output tile): W1 x W2, in rows of W2P
+  // words, whole runs of L; the input tile
+  const int W1 = kTwo ? T1 + K1 - 1 : T1, W2 = kTwo ? kT2 + K2 - 1 : kT2;
+  const int runs2 = (W2 + L - 1) / L, W2P = L * runs2;
+  const int H1 = W1 + K1 - 1, H2 = W2 + K2 - 1;
+  const int nch = (H2 + 6) >> 2, H2P = 4 * nch;
+  const int lead0 = p.lo1[0] + (kTwo ? p.lo2[0] : 0);
+  const int lead1 = p.lo1[1] + (kTwo ? p.lo2[1] : 0);
+  const int lead2 = p.lo1[2] + (kTwo ? p.lo2[2] : 0);
+  int* row_map = reinterpret_cast<int*>(smem);  // H1
+  int* col_map = row_map + H1;                  // H2
+  float* s_in = smem + (H1 + H2 + 3) / 4 * 4;   // stages tiles, H1 x H2P
+  // after axis 2: H1 rows, and L rows that runs past the end may read
+  T* s_a = reinterpret_cast<T*>(s_in + stages * H1 * H2P);
+  float* s_p = reinterpret_cast<float*>(s_a + (H1 + L) * W2P);  // W1 x W2P
+  float* s_b = s_p + W1 * W2P;                 // (W1 + L) x kT2
+  T* ring1 = kTwo ? reinterpret_cast<T*>(s_b + (W1 + L) * kT2)
+                  : reinterpret_cast<T*>(s_p);  // K0 planes, W1 x W2
+  float* ring2 = reinterpret_cast<float*>(ring1 + K0 * W1 * W2);  // K0 x T1 x kT2
 
-  const int tiles2 = (n2 + kT2 - 1) / kT2;
+  // tiles of kT2 columns from column -a on; where the planner can (a =
+  // -lead2 modulo 4 adds no tile), every input tile starts on a 16-byte
+  // boundary and a run's samples are whole float4 chunks (run4)
+  const int a = p.shift;
+  const int tiles2 = (n2 + a + kT2 - 1) / kT2;
   const int o1 = (blockIdx.x / tiles2) * T1;
-  const int o2 = (blockIdx.x % tiles2) * kT2;
+  const int o2 = (blockIdx.x % tiles2) * kT2 - a;
   const int z0 = blockIdx.y * p.z;
   const int z1 = min(z0 + p.z, n0);
-  const int nplanes = z1 - z0 + K0 - 1;
-  build_maps(row_map, H1, o1 - p.lo1[1], n1, p.mode[1], H2, o2 - p.lo1[2],
-             n2, p.mode[2]);
+  const int nplanes = z1 - z0 + (kTwo ? 2 : 1) * (K0 - 1);
+  const int xs = o2 - lead2;
+  const int sh = xs - floor4(xs);  // 0 where the planner shifted the tiles
+  const int tid = threadIdx.y * kBX + threadIdx.x;
+  build_maps(row_map, H1, o1 - lead1, n1, p.mode[1], H2, xs, n2, p.mode[2]);
   __syncthreads();
 
   auto issue = [&](int e) {
     if (e < nplanes) {
-      load_plane(x, s_in + (e % kMorphStages) * H1 * H2, z0 - p.lo1[0] + e,
-                 n0, p.mode[0], n1, n2, row_map, col_map, H1, H2, p.cval);
+      load_plane16(x, s_in + (e % stages) * H1 * H2P, z0 - lead0 + e, n0,
+                   p.mode[0], n1, n2, row_map, col_map, H1, H2, nch, xs,
+                   p.vec, p.cval);
     }
     __pipeline_commit();
   };
-
-  for (int e = 0; e < kMorphStages - 1; ++e) issue(e);
-  for (int e = 0; e < nplanes; ++e) {
-    issue(e + kMorphStages - 1);
-    __pipeline_wait_prior(kMorphStages - 1);
-    __syncthreads();
-    const float* tile = s_in + (e % kMorphStages) * H1 * H2;
-    for (int r = threadIdx.y; r < H1; r += kBY) {
-      for (int c = threadIdx.x; c < kT2; c += kBX) {
-        const float* s = tile + r * H2 + c;
-        float mn = s[0], mx = s[0];
-        for (int k = 1; k < K2; ++k) {
-          mn = min_nan(mn, s[k]);
-          mx = max_nan(mx, s[k]);
-        }
-        s_mn[r * kT2 + c] = mn;
-        s_mx[r * kT2 + c] = mx;
+  // every thread's copies of plane e + 1 done (one commit group a plane,
+  // empty past the last plane, so that a fixed depth works)
+  auto wait_next = [&]() {
+    if (stages == 4) {
+      __pipeline_wait_prior(3);
+    } else if (stages == 2) {
+      __pipeline_wait_prior(1);
+    } else {
+      __pipeline_wait_prior(0);
+    }
+  };
+  // the axis-2 fold of stage 1 (the pair: both) over the tile's rows, a
+  // run of L columns a thread (run4; the run past W2 is discarded)
+  auto axis2_first = [&](const float* tile) {
+    const int dr = kThreads / runs2, dq = kThreads - dr * runs2;
+    int r = tid / runs2, q = tid - r * runs2;
+    for (int i = tid; i < H1 * runs2; i += kThreads) {
+      T v[L];
+      run4<Op1>(K2, tile + r * H2P + sh + L * q, sh == 0, v);
+      store4(s_a + r * W2P + L * q, v);
+      q += dq;
+      r += dr;
+      if (q >= runs2) {
+        q -= runs2;
+        ++r;
       }
     }
-    __syncthreads();
-    const int slot = e % K0, first = (e + 1) % K0;
-    const int zo = z0 + e - (K0 - 1);
-    for (int r = threadIdx.y; r < T1; r += kBY) {
-      for (int c = threadIdx.x; c < kT2; c += kBX) {
-        const int at = r * kT2 + c;
-        float mn = s_mn[at], mx = s_mx[at];
-        for (int k = 1; k < K1; ++k) {
-          mn = min_nan(mn, s_mn[at + k * kT2]);
-          mx = max_nan(mx, s_mx[at + k * kT2]);
+  };
+  // the axis-1 fold of a run of L rows of s_a's column cc
+  auto axis1_first = [&](int run, int cc, T (&v)[L]) {
+    const T* s = s_a + run * L * W2P + cc;
+    run_fold<Op1, L>(K1, [&](int m) { return s[m * W2P]; }, v);
+  };
+  // stage 2's axis-2 fold over s_p's rows, into s_b, a run of L columns
+  // a thread
+  auto axis2_second = [&]() {
+    constexpr int kRuns = kT2 / L;
+    for (int i = tid; i < W1 * kRuns; i += kThreads) {
+      const int r = i / kRuns, q = i % kRuns;
+      float v[L];
+      run4<Op2>(K2, s_p + r * W2P + L * q, true, v);
+      store4(s_b + r * kT2 + L * q, v);
+    }
+  };
+  // an output cell (row r, column cc of the tile, output plane zo) from
+  // its stage-2 (pair: (min, max)) value
+  auto emit = [&](int zo, int r, int cc, auto v) {
+    if (r < T1 && o1 + r < n1 && o2 + cc >= 0 && o2 + cc < n2) {
+      const size_t i = ((size_t)zo * n1 + o1 + r) * n2 + o2 + cc;
+      if constexpr (std::is_same<decltype(v), float>::value) {
+        y[i] = v;  // stage 2's value
+      } else {
+        y[i] = combine<KIND>(v, x, i);  // the pair's (min, max)
+      }
+    }
+  };
+
+  // the thread's runs: stage 1's (of the pair: its only stage) and, for
+  // the two-stage kernel, stage 2's, each (run of L rows, column)
+  const int runs1 = (W1 + L - 1) / L, items1 = runs1 * W2;
+  const int run2 = tid / kT2, col2 = tid % kT2;
+  const bool live2 = kTwo && run2 * L < T1;  // T1 <= 16: one item a thread
+
+  for (int e = 0; e < stages; ++e) issue(e);
+  wait_next();
+  __syncthreads();
+
+  if constexpr (KZ > 0) {
+    int run1[NI], col1[NI];
+#pragma unroll
+    for (int it = 0; it < NI; ++it) {
+      const int item = tid + it * kThreads;
+      run1[it] = item < items1 ? item / W2 : runs1;  // runs1: no item
+      col1[it] = item - run1[it] * W2;
+    }
+    T hist1[NI][KW][L];
+    float hist2[KW][L];
+    // plane e's values in slot e % KZ of each window: the newest
+    // overwrites the oldest, and a full window is all KZ slots
+    for (int e0 = 0; e0 < nplanes; e0 += KZ) {
+#pragma unroll
+      for (int u = 0; u < KZ; ++u) {
+        const int e = e0 + u;
+        if (e >= nplanes) break;  // the same for every thread
+        axis2_first(s_in + (e % stages) * H1 * H2P);
+        __syncthreads();
+        issue(e + stages);  // into the buffer axis2_first just read
+        const int p1 = e - (K0 - 1);  // stage-1 plane, once its window is full
+#pragma unroll
+        for (int it = 0; it < NI; ++it) {
+          if (run1[it] >= runs1) continue;
+          axis1_first(run1[it], col1[it], hist1[it][u]);
+          if (p1 < 0) continue;
+#pragma unroll
+          for (int l = 0; l < L; ++l) {
+            T v = hist1[it][0][l];
+#pragma unroll
+            for (int k = 1; k < KZ; ++k) v = Op1::op(v, hist1[it][k][l]);
+            const int r = run1[it] * L + l;
+            if constexpr (kTwo) {
+              if (r < W1) s_p[r * W2P + col1[it]] = v;
+            } else {
+              emit(z0 + p1, r, col1[it], v);
+            }
+          }
         }
-        ring_mn[slot * TT + at] = mn;
-        ring_mx[slot * TT + at] = mx;
-        if (zo >= z0 && o1 + r < n1 && o2 + c < n2) {
-          mn = fold_ring<kMin>(ring_mn, TT, at, K0, first);
-          mx = fold_ring<kMax>(ring_mx, TT, at, K0, first);
-          const size_t i = ((size_t)zo * n1 + o1 + r) * n2 + o2 + c;
-          y[i] = KIND == kGrad
-                     ? __fsub_rn(mx, mn)
-                     : __fsub_rn(__fadd_rn(mx, mn), __fmul_rn(2.0f, x[i]));
+        if constexpr (!kTwo) {
+          wait_next();
+          __syncthreads();
+          continue;
         }
+        if (p1 >= 0) {
+          __syncthreads();
+          axis2_second();
+        }
+        wait_next();
+        __syncthreads();
+        if (p1 < 0 || !live2) continue;
+        {
+          float v[L];
+          run_fold<Op2, L>(K1, [&](int m) {
+            return s_b[(run2 * L + m) * kT2 + col2];
+          }, v);
+#pragma unroll
+          for (int l = 0; l < L; ++l) hist2[u][l] = v[l];
+        }
+        const int q = p1 - (K0 - 1);  // output plane, once its window is full
+        if (q < 0) continue;
+#pragma unroll
+        for (int l = 0; l < L; ++l) {
+          float v = hist2[0][l];
+#pragma unroll
+          for (int k = 1; k < KZ; ++k) v = Op2::op(v, hist2[k][l]);
+          emit(z0 + q, run2 * L + l, col2, v);
+        }
+      }
+    }
+  } else {
+    // rings of K0 planes: plane e's values in slot e % K0; a thread reads
+    // only the cells it writes, so the rings need no barrier
+    for (int e = 0; e < nplanes; ++e) {
+      axis2_first(s_in + (e % stages) * H1 * H2P);
+      __syncthreads();
+      issue(e + stages);
+      const int p1 = e - (K0 - 1);
+      T* slot1 = ring1 + (e % K0) * W1 * W2;
+      for (int item = tid; item < items1; item += kThreads) {
+        const int run = item / W2, cc = item - run * W2;
+        T v[L];
+        axis1_first(run, cc, v);
+#pragma unroll
+        for (int l = 0; l < L; ++l) {
+          const int r = run * L + l;
+          if (r >= W1) break;
+          slot1[r * W2 + cc] = v[l];
+          if (p1 < 0) continue;
+          T w = ring1[r * W2 + cc];
+          for (int k = 1; k < K0; ++k) {
+            w = Op1::op(w, ring1[(k * W1 + r) * W2 + cc]);
+          }
+          if constexpr (kTwo) {
+            s_p[r * W2P + cc] = w;
+          } else {
+            emit(z0 + p1, r, cc, w);
+          }
+        }
+      }
+      if constexpr (!kTwo) {
+        wait_next();
+        __syncthreads();
+        continue;
+      }
+      if (p1 >= 0) {
+        __syncthreads();
+        axis2_second();
+      }
+      wait_next();
+      __syncthreads();
+      if (p1 < 0 || !live2) continue;
+      const int q = p1 - (K0 - 1);
+      float v[L];
+      run_fold<Op2, L>(K1, [&](int m) {
+        return s_b[(run2 * L + m) * kT2 + col2];
+      }, v);
+      float* slot2 = ring2 + (p1 % K0) * T1 * kT2;
+#pragma unroll
+      for (int l = 0; l < L; ++l) {
+        const int r = run2 * L + l;
+        if (r >= T1) break;
+        slot2[r * kT2 + col2] = v[l];
+        if (q < 0) continue;
+        float w = ring2[r * kT2 + col2];
+        for (int k = 1; k < K0; ++k) {
+          w = Op2::op(w, ring2[(k * T1 + r) * kT2 + col2]);
+        }
+        emit(z0 + q, r, col2, w);
       }
     }
   }
 }
 
 template <class Kernel>
-int launch_morph(Kernel kernel, const float* x, float* y,
-                 const MorphParams& p, const int* plan, void* stream) {
-  const dim3 grid(plan[2], plan[3]);
-  const int smem = plan[4];
+int start(Kernel kernel, dim3 grid, dim3 block, int smem, void* stream,
+          const float* x, float* y, const MorphParams& p) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, dim3(kBX, kBY), smem, (cudaStream_t)stream>>>(x, y, p);
+  kernel<<<grid, block, smem, (cudaStream_t)stream>>>(x, y, p);
   return (int)cudaGetLastError();
+}
+
+template <int KIND>
+int launch_morph(const float* x, float* y, const MorphParams& p,
+                 const int* plan, void* stream) {
+  const dim3 grid(plan[2], plan[3]);
+  const int smem = plan[4];
+  if (plan[5]) {
+    return start(morph_rows_f32_kernel<KIND>, grid, dim3(kRowThreads), smem,
+                 stream, x, y, p);
+  }
+  const dim3 block(kBX, kBY);
+  switch (plan[8]) {
+    case 1:
+      return start(morph_planes_f32_kernel<KIND, 1>, grid, block, smem,
+                   stream, x, y, p);
+    case 3:
+      return start(morph_planes_f32_kernel<KIND, 3>, grid, block, smem,
+                   stream, x, y, p);
+    case 5:
+      return start(morph_planes_f32_kernel<KIND, 5>, grid, block, smem,
+                   stream, x, y, p);
+    default:
+      return start(morph_planes_f32_kernel<KIND, 0>, grid, block, smem,
+                   stream, x, y, p);
+  }
 }
 
 }  // namespace
@@ -1127,9 +1499,11 @@ extern "C" int fused_separable_f32(const float* x, float* y, const int* dims,
 }
 
 // dims: n0, n1, n2.  axis_info: 3 x (window, lead of stage 1, lead of
-// stage 2, mode).  plan: t1, z, grid_x, grid_y, shared bytes.  kind: 0
-// opening, 1 closing, 2 gradient, 3 laplace.  Returns the cudaError_t of
-// the attribute call or of the launch.
+// stage 2, mode).  plan: t1, z, grid_x, grid_y, shared bytes, path (0
+// planes, 1 rows), vec (rows may be read in 16-byte chunks), stages,
+// register window (1, 3 or 5; 0: rings), t2, shift.  kind: 0 opening, 1
+// closing, 2 gradient, 3 laplace.  Returns the cudaError_t of the
+// attribute call or of the launch.
 extern "C" int fused_separable_morph_f32(const float* x, float* y,
                                          const int* dims,
                                          const int* axis_info, float cval,
@@ -1146,17 +1520,15 @@ extern "C" int fused_separable_morph_f32(const float* x, float* y,
   p.cval = cval;
   p.t1 = plan[0];
   p.z = plan[1];
+  p.vec = plan[6];
+  p.stages = plan[7];
+  p.t2 = plan[9];
+  p.shift = plan[10];
   switch (kind) {
-    case kOpening:
-      return launch_morph(open_close_f32_kernel<kMin>, x, y, p, plan, stream);
-    case kClosing:
-      return launch_morph(open_close_f32_kernel<kMax>, x, y, p, plan, stream);
-    case kGrad:
-      return launch_morph(morph_pair_f32_kernel<kGrad>, x, y, p, plan,
-                          stream);
-    case kLaplace:
-      return launch_morph(morph_pair_f32_kernel<kLaplace>, x, y, p, plan,
-                          stream);
+    case kOpening: return launch_morph<kOpening>(x, y, p, plan, stream);
+    case kClosing: return launch_morph<kClosing>(x, y, p, plan, stream);
+    case kGrad: return launch_morph<kGrad>(x, y, p, plan, stream);
+    case kLaplace: return launch_morph<kLaplace>(x, y, p, plan, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

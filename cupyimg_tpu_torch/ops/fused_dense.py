@@ -5,7 +5,10 @@ The counterpart of ``cupyimg_tpu/ops/pallas_stencil.py``'s dense half
 (``supports_dense``, ``fused_dense_correlate`` -> ``_fused_dense``): a
 2-D/3-D float32 correlation over the nonzero taps of a concrete weights
 array, in one pass over device memory (``csrc/fused_dense.cu``), with one
-ndimage mode applied inside the kernel's loads.
+ndimage mode applied inside the kernel's loads.  A footprint that
+:func:`blocked_plan` accepts runs on the register-blocked kernel (one of
+its compile-time instances, ``BLOCKED_INSTANCES``); any other on the
+generic kernel, planned by :func:`group_taps`.
 
 For a CUDA tensor :func:`fused_dense_correlate` launches the kernel or
 raises; only a CPU tensor takes :func:`fused_dense_correlate_ref`.
@@ -26,9 +29,14 @@ import torch
 
 from cupyimg_tpu_torch.core import boundary, dtypes
 from cupyimg_tpu_torch.ops import stencil
-from cupyimg_tpu_torch.ops.fused_separable import _MODE_CODES, _window
+from cupyimg_tpu_torch.ops.fused_separable import (
+    _MODE_CODES,
+    SMEM_LIMIT,
+    _window,
+)
 
 __all__ = [
+    "blocked_plan",
     "fused_dense_correlate",
     "fused_dense_correlate_ref",
     "group_taps",
@@ -45,6 +53,14 @@ _GROUP_INTS = 8
 #: blocks along axis 0 at most (CUDA's grid.y limit); a block loops over
 #: the planes beyond it
 _MAX_GRID_Y = 65535
+#: the blocked kernel's compile-time instances: (K0 planes, S rows of a
+#: chunk) -> rows a thread (R: the output tile is 8R x T2)
+BLOCKED_INSTANCES = {
+    **{(1, s): 8 for s in (1, 3, 5, 7, 9, 16)},
+    **{(k0, s): 4 for k0 in (2, 3, 4, 5) for s in (3, 5)},
+}
+# one resident wave of the blocked kernel's 3-D blocks: three an SM
+_BLOCKED_BLOCKS = 3 * 132
 
 
 def supports_dense(x, weights):
@@ -176,6 +192,111 @@ def grid(shape3, t1, t2):
     return (math.ceil(n1 / t1) * math.ceil(n2 / t2), min(n0, _MAX_GRID_Y))
 
 
+@dataclass(frozen=True)
+class BlockedPlan:
+    """The blocked kernel's plan for one weights array: instance (k0, s)
+    with ``rows`` rows a thread; the footprint's nonzero bounding box
+    (``start``, ``box``: its extent per axis); ``cols``, the (chunk,
+    column) pairs of the box with a nonzero tap, chunk c holding rows
+    [c s, c s + s), the ``ndense`` pairs with no zero weight first; their
+    weights, (len(cols), k0, s), zero past the box; the shared bytes of a
+    block and the stages (input planes in flight, 1 for k0 == 1)."""
+
+    k0: int
+    s: int
+    rows: int
+    start: tuple
+    box: tuple
+    cols: tuple
+    weights: np.ndarray
+    smem_bytes: int
+    stages: int
+    ndense: int
+
+    @property
+    def t1(self):
+        return 8 * self.rows
+
+
+def blocked_smem_bytes(ncols, k0, s, rows, box, stages):
+    """Shared bytes of the blocked kernel: the (chunk, column) pairs,
+    their k0 x s weights, the tile's index maps and ``stages`` tiles of
+    (8 rows + chunks s - 1) rows of 16-byte chunks (``H1``, ``H2P`` in
+    the kernel)."""
+    _, w1, w2 = box
+    h1 = 8 * rows + math.ceil(w1 / s) * s - 1
+    h2 = T2 + w2 - 1
+    head = (2 * ncols + ncols * k0 * s + h1 + h2 + 3) // 4 * 4
+    return 4 * (head + stages * h1 * 4 * ((h2 + 6) // 4))
+
+
+def blocked_plan(w):
+    """The blocked kernel's plan for float32 weights ``w`` (2-D or 3-D),
+    or None where it does not apply: the nonzero taps' bounding box has
+    no instance's K0 planes, the tile does not fit shared memory, or the
+    taps are too sparse for register blocking to pay (each (chunk,
+    column) pair loads rows + s - 1 samples for ``rows`` outputs, which
+    must not exceed one load per nonzero tap).  The chunk size s is the
+    instance's that loads the fewest samples, the smaller on a tie."""
+    w3 = np.asarray(w, np.float32).reshape((1,) * (3 - w.ndim) + w.shape)
+    nz = np.argwhere(w3 != 0)
+    if len(nz) == 0:
+        return None
+    start = nz.min(0)
+    stop = nz.max(0) + 1
+    box = w3[tuple(slice(a, b) for a, b in zip(start, stop))]
+    k0, w1, w2 = box.shape
+    cands = sorted(
+        (math.ceil(w1 / s) * (r + s - 1), s, r)
+        for (kk, s), r in BLOCKED_INSTANCES.items() if kk == k0)
+    if not cands:
+        return None
+    _, s, rows = cands[0]
+    chunks = math.ceil(w1 / s)
+    padded = np.zeros((k0, chunks * s, w2), np.float32)
+    padded[:, :w1] = box
+    cols = [(c, d2) for c in range(chunks) for d2 in range(w2)
+            if padded[:, c * s:(c + 1) * s, d2].any()]
+    # the pairs with no zero weight first: the kernel skips their test
+    cols.sort(key=lambda cd: not padded[:, cd[0] * s:(cd[0] + 1) * s,
+                                        cd[1]].all())
+    ndense = sum(1 for c, d2 in cols
+                 if padded[:, c * s:(c + 1) * s, d2].all())
+    if len(cols) * (rows + s - 1) > rows * len(nz):
+        return None
+    weights = np.stack([padded[:, c * s:(c + 1) * s, d2] for c, d2 in cols])
+    for stages in ((1,) if k0 == 1 else (4, 3, 2)):
+        nbytes = blocked_smem_bytes(len(cols), k0, s, rows, box.shape,
+                                    stages)
+        if nbytes <= SMEM_LIMIT:
+            weights.setflags(write=False)
+            return BlockedPlan(k0, s, rows, tuple(int(v) for v in start),
+                               box.shape, tuple(cols), weights, nbytes,
+                               stages, ndense)
+    return None
+
+
+def blocked_buffer(bp):
+    """The blocked kernel's plan buffer: the (chunk, column) pairs as
+    int32, then their weights as raw float32 words."""
+    pairs = np.asarray(bp.cols, np.int32).reshape(-1)
+    return np.concatenate([pairs, bp.weights.reshape(-1).view(np.int32)])
+
+
+def blocked_grid(shape3, bp):
+    """(grid_x, grid_y, z) of the blocked kernel over a (n0, n1, n2)
+    array: tiles of 8 rows x T2; one plane a block step for k0 == 1 (a
+    block loops over planes past CUDA's grid.y limit), else runs of z
+    output planes that keep the blocks within one resident wave."""
+    n0, n1, n2 = shape3
+    tiles = math.ceil(n1 / bp.t1) * math.ceil(n2 / T2)
+    if bp.k0 == 1:
+        return tiles, min(n0, _MAX_GRID_Y), 1
+    chunks = max(1, min(n0, _BLOCKED_BLOCKS // tiles))
+    z = math.ceil(n0 / chunks)
+    return tiles, math.ceil(n0 / z), z
+
+
 def footprint_offsets3(mask):
     """Nonzero footprint indices of a 2-D or 3-D array as (d0, d1, d2)
     triples, in ``np.argwhere`` order (a 2-D index gets d0 = 0)."""
@@ -216,22 +337,47 @@ def _launch(x, weights, origins, mode, cval):
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
-    plan, ngroups, ntaps, smem = _device_plan(w32.tobytes(), w32.shape,
-                                              x.device)
-    geom = np.asarray((*grid(shape3, T1, T2), smem), np.int32)
-    dims = np.asarray(shape3, np.int32)
-    lo = np.asarray(los, np.int32)
     lib = _library()
+    bp, buf = _blocked_device_plan(w32.tobytes(), w32.shape, x.device)
+    dims = np.asarray(shape3, np.int32)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.fused_dense_f32(
-            x.data_ptr(), y.data_ptr(), dims.ctypes.data, lo.ctypes.data,
-            _MODE_CODES[mode], float(cval), plan.data_ptr(), ngroups, ntaps,
-            geom.ctypes.data, stream,
-        )
+        if bp is not None:
+            gx, gy, z = blocked_grid(shape3, bp)
+            lo = np.asarray([a - b for a, b in zip(los, bp.start)], np.int32)
+            box = np.asarray(bp.box[1:], np.int32)
+            vec = int(x.data_ptr() % 16 == 0 and shape3[2] % 4 == 0)
+            geom = np.asarray((gx, gy, bp.smem_bytes, z, bp.stages, vec,
+                               bp.k0, bp.s, bp.ndense), np.int32)
+            err = lib.fused_dense_blocked_f32(
+                x.data_ptr(), y.data_ptr(), dims.ctypes.data, lo.ctypes.data,
+                box.ctypes.data, _MODE_CODES[mode], float(cval),
+                buf.data_ptr(), len(bp.cols), geom.ctypes.data, stream,
+            )
+        else:
+            plan, ngroups, ntaps, smem = _device_plan(
+                w32.tobytes(), w32.shape, x.device)
+            geom = np.asarray((*grid(shape3, T1, T2), smem), np.int32)
+            lo = np.asarray(los, np.int32)
+            err = lib.fused_dense_f32(
+                x.data_ptr(), y.data_ptr(), dims.ctypes.data, lo.ctypes.data,
+                _MODE_CODES[mode], float(cval), plan.data_ptr(), ngroups,
+                ntaps, geom.ctypes.data, stream,
+            )
     if err != 0:
         raise RuntimeError(f"fused_dense kernel launch failed: CUDA error {err}")
     return y
+
+
+@functools.lru_cache(maxsize=32)
+def _blocked_device_plan(w_bytes, wshape, device):
+    """(:func:`blocked_plan`, its buffer on ``device``) for float32
+    weights given as raw bytes, or (None, None): built once per weights
+    array and device."""
+    bp = blocked_plan(np.frombuffer(w_bytes, np.float32).reshape(wshape))
+    if bp is None:
+        return None, None
+    return bp, torch.from_numpy(blocked_buffer(bp)).to(device)
 
 
 @functools.lru_cache(maxsize=32)
@@ -256,6 +402,12 @@ def _library():
     fn.argtypes = [ctypes.c_void_p] * 4 + [
         ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    fn = lib.fused_dense_blocked_f32
+    fn.argtypes = [ctypes.c_void_p] * 5 + [
+        ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return lib

@@ -13,9 +13,10 @@ Two further modes serve grey morphology over flat box windows, each in
 one launch: two-stage (:func:`fused_separable_open_close`, min then max
 or max then min over one combined extension) and pair
 (:func:`fused_separable_morph_pair`, max - min or max + min - 2x from one
-extension).  Whether a tile of the two-stage mode fits shared memory is
-the planner's answer (:func:`supports_open_close`), given before any
-launch.
+extension).  Each has a rows path for a 2-D array and a planes path for
+a 3-D one (:func:`plan`); whether a tile of the two-stage mode fits
+shared memory is the planner's answer (:func:`supports_open_close`),
+given before any launch.
 
 For a CUDA tensor every wrapper launches the kernel or raises; only a
 CPU tensor takes the plain versions (``*_ref``).
@@ -49,11 +50,9 @@ __all__ = [
 ]
 
 MAX_TAPS = 64
-#: input tiles in flight per block (kStages in the kernel)
+#: input tiles in flight per block (kStages in the kernel; at most this
+#: many on the morphology modes' planes path)
 STAGES = 4
-#: input tiles in flight per block of the two-stage and pair modes
-#: (kMorphStages in the kernel)
-MORPH_STAGES = 2
 #: output tile width along the last axis (kT2 in the kernel)
 T2 = 64
 #: the rows path (a 2-D array): output columns a block (kRowW) and input
@@ -70,6 +69,21 @@ REGISTER_WINDOWS = (3, 5)
 _TARGET_BLOCKS = 512
 # the rows path's blocks: one resident wave of four blocks on each SM
 _ROW_BLOCKS = 4 * 132
+#: the morphology modes' planes path: rows of a thread's axis-1 run
+#: (kMorphL), and the two-stage stage-1 runs a thread holds with a
+#: register window (kMorphItems) of 256 threads
+MORPH_L = 4
+MORPH_ITEMS = 2
+#: axis-0 windows the morphology modes' planes path keeps in registers
+MORPH_WINDOWS = (1, 3, 5)
+#: input planes in flight on that path, the most that fit first (the
+#: kernel's wait depths)
+MORPH_STAGES = (4, 2, 1)
+# one resident wave of the morphology kernels' blocks, by mode and path
+# (kMorphBlocksPerSM, kMorphRowBlocksPerSM): planes 2 (two-stage) and 3
+# (pair) an SM, rows 4 and 3
+_MORPH_BLOCKS = {"open_close": 2 * 132, "pair": 3 * 132}
+_MORPH_ROW_BLOCKS = {"open_close": 4 * 132, "pair": 3 * 132}
 
 _MODE_CODES = {
     "reflect": 0, "grid-mirror": 0,
@@ -119,8 +133,13 @@ class Plan:
     2, clipped to the volume, with ``o1 = (bx // tiles2) * t1`` and
     ``o2 = (bx % tiles2) * t2``: the same arithmetic as the kernel.
     ``mode`` is the kernel's path or mode (:func:`smem_bytes`); on the
-    rows path a block marches down its ``t1`` rows of a strip ``t2``
-    wide.
+    rows paths a block marches down its ``t1`` rows of a strip ``t2``
+    wide.  ``stages`` (input planes in flight) and ``window`` (the
+    axis-0 window in registers, 0 for a shared ring) are the morphology
+    planes path's; the morphology modes' tiles and strips start ``shift``
+    columns left of column 0 (minus the input's lead along axis 2, modulo
+    4; the planes path only where that adds no tile), so that each input
+    tile starts on a 16-byte boundary.
     """
 
     shape: tuple
@@ -131,21 +150,24 @@ class Plan:
     grid: tuple
     smem_bytes: int
     mode: str = "separable"
+    stages: int = STAGES
+    window: int = 0
+    shift: int = 0
 
     @property
     def tiles2(self):
-        return math.ceil(self.shape[2] / self.t2)
+        return math.ceil((self.shape[2] + self.shift) / self.t2)
 
     def block_region(self, bx, by):
         """Output slices (axes 0, 1, 2) written by block (bx, by)."""
         n0, n1, n2 = self.shape
         o1 = (bx // self.tiles2) * self.t1
-        o2 = (bx % self.tiles2) * self.t2
+        o2 = (bx % self.tiles2) * self.t2 - self.shift
         z0 = by * self.z
         return (
             slice(z0, min(z0 + self.z, n0)),
             slice(o1, min(o1 + self.t1, n1)),
-            slice(o2, min(o2 + self.t2, n2)),
+            slice(max(o2, 0), max(min(o2 + self.t2, n2), 0)),
         )
 
 
@@ -170,31 +192,62 @@ def row_ring(k1):
     return ROW_STEP * (math.ceil((k1 - 1) / ROW_STEP) + 1)
 
 
-def smem_bytes(ntaps, t1, t2=T2, mode="separable"):
+def _morph_units(k2):
+    """8-sample units of a row of the two-stage rows path's stage-1 buffer
+    (``nu1`` in the kernel): 128 + k2 - 1 samples, rounded up to 2 modulo
+    4."""
+    return (((k2 + 134) >> 3) + 1) // 4 * 4 + 2
+
+
+def smem_bytes(ntaps, t1, t2=T2, mode="separable", stages=STAGES,
+               window=0):
     """Shared memory of one block, in bytes (4-byte words).
 
     ``mode="separable"`` (the planes path): the taps, the row and column
     index maps, STAGES halo'd input tiles (rows of 16-byte chunks), the
     tile after the axis-2 pass and the ring of K0 filtered planes (none
-    for K0 in REGISTER_WINDOWS).  ``"rows"`` (a 2-D array): the taps of two axes, two
-    stage buffer of ROW_STEP input rows and the ring of :func:`row_ring`
-    filtered rows of ``t2``; ``t1``, the block's rows, costs nothing.  ``"open_close"``: the index maps, MORPH_STAGES
-    input tiles halo'd by both stages' windows, stage 1's tile after
-    axis 2, its ring of K0 planes and its output plane (each halo'd by
-    stage 2's window), stage 2's tile after axis 2 and its ring of K0
-    planes.  ``"pair"``: the index maps, MORPH_STAGES halo'd input tiles,
-    and the tile after axis 2 and the ring of K0 planes, each twice (min
-    and max)."""
+    for K0 in REGISTER_WINDOWS).  ``"rows"`` (a 2-D array): the taps of
+    two axes, one stage buffer of ROW_STEP input rows and the ring of
+    :func:`row_ring` filtered rows of ``t2``; ``t1``, the block's rows,
+    costs nothing.
+
+    The morphology modes' planes paths: ``"open_close"``: the index maps,
+    ``stages`` input tiles halo'd by both stages' windows (rows of
+    16-byte chunks), stage 1's tile after axis 2 (MORPH_L rows more, which
+    the last runs may read) and its plane after axis 1 and 0 (halo'd by
+    stage 2's window), both in rows of whole runs of MORPH_L, stage 2's
+    tile after axis 2 (MORPH_L rows more)
+    and, with no register ``window``, the rings of K0 planes of both
+    stages.  ``"pair"``: the index maps, ``stages`` halo'd input tiles,
+    the tile after axis 2 as (min, max) pairs and, with no register
+    ``window``, the ring of K0 planes of pairs.  Their rows paths
+    (``t2`` columns a strip, 128 computed a row): ``"open_close_rows"``:
+    one stage buffer, stage 1's ring, its 16 rows for stage 2, stage 2's
+    ring; ``"pair_rows"``: two stage buffers and a ring of pairs."""
     k0, k1, k2 = ntaps
-    if mode == "open_close":
-        w1, w2 = t1 + k1 - 1, t2 + k2 - 1
+    if mode in ("open_close_rows", "pair_rows"):
+        lag = math.ceil((k1 - 1) / ROW_STEP)
+        stage = ROW_STEP * 8 * _row_units(k2)
+        if mode == "pair_rows":
+            return 4 * (2 * stage + 2 * ROW_STEP * (lag + 2) * ROW_W)
+        return 4 * (stage + ROW_STEP * 8 * _morph_units(k2)
+                    + 2 * ROW_STEP * (lag + 1) * ROW_W)
+    if mode in ("open_close", "pair"):
+        if mode == "open_close":
+            w1, w2 = t1 + k1 - 1, t2 + k2 - 1
+        else:
+            w1, w2 = t1, t2
         h1, h2 = w1 + k1 - 1, w2 + k2 - 1
-        return 4 * (h1 + h2 + MORPH_STAGES * h1 * h2 + h1 * w2
-                    + (k0 + 1) * w1 * w2 + w1 * t2 + k0 * t1 * t2)
+        maps = (h1 + h2 + 3) // 4 * 4
+        tiles = stages * h1 * 4 * ((h2 + 6) // 4)
+        if mode == "pair":
+            ring = 0 if window else 2 * k0 * t1 * t2
+            return 4 * (maps + tiles + 2 * (h1 + MORPH_L) * t2 + ring)
+        w2p = MORPH_L * math.ceil(w2 / MORPH_L)  # rows of whole runs
+        ring = 0 if window else k0 * (w1 * w2 + t1 * t2)
+        return 4 * (maps + tiles + (h1 + MORPH_L) * w2p + w1 * w2p
+                    + (w1 + MORPH_L) * t2 + ring)
     h1, h2 = t1 + k1 - 1, t2 + k2 - 1
-    if mode == "pair":
-        return 4 * (h1 + h2 + MORPH_STAGES * h1 * h2 + 2 * h1 * t2
-                    + 2 * k0 * t1 * t2)
     if mode == "rows":
         return 4 * (2 * MAX_TAPS + ROW_STEP * 8 * _row_units(k2)
                     + row_ring(k1) * t2)
@@ -206,16 +259,83 @@ def smem_bytes(ntaps, t1, t2=T2, mode="separable"):
                 + h1 * t2 + ring)
 
 
-def plan(shape, ntaps, mode="separable"):
+def morph_items(ntaps, t1):
+    """Stage-1 axis-1 runs of the two-stage planes path for a ``t1``-row
+    tile: MORPH_L rows of stage 1's plane (t1 + K1 - 1 rows) by its
+    T2 + K2 - 1 columns."""
+    _, k1, k2 = ntaps
+    return math.ceil((t1 + k1 - 1) / MORPH_L) * (T2 + k2 - 1)
+
+
+def _morph_plan(shape, ntaps, mode, shift):
+    """The morphology modes' plan: a rows path for one plane with axis 0
+    unfiltered, else the planes path, trying the register window first
+    (for K0 in MORPH_WINDOWS, while the two-stage kernel's stage-1 runs
+    fit MORPH_ITEMS a thread), then the rings, with the tallest tile and
+    the most stages in flight that fit."""
+    n0, n1, n2 = shape
+    k0, k1, k2 = ntaps
+    if n0 == 1 and k0 == 1:
+        rmode = mode + "_rows"
+        # stage 1's ROW_W columns hold stage 2's halo; strips of a
+        # multiple of 4 columns
+        ow = (ROW_W - (k2 - 1)) // 4 * 4 if mode == "open_close" else ROW_W
+        strips = math.ceil((n2 + shift) / ow)
+        # runs of rows that keep the blocks within one resident wave
+        per_strip = max(1, _MORPH_ROW_BLOCKS[mode] // strips)
+        rows = ROW_STEP * math.ceil(n1 / (per_strip * ROW_STEP))
+        return Plan(
+            shape=shape, ntaps=ntaps, t1=rows, t2=ow, z=1,
+            grid=(strips * math.ceil(n1 / rows), 1),
+            smem_bytes=smem_bytes(ntaps, rows, ow, rmode), mode=rmode,
+            shift=shift,
+        )
+    # the planes path shifts its tiles only where that adds no tile
+    if math.ceil((n2 + shift) / T2) > math.ceil(n2 / T2):
+        shift = 0
+    windows = (k0, 0) if k0 in MORPH_WINDOWS else (0,)
+    for window in windows:
+        for t1 in (8, 4, 2, 1) if n1 <= 8 else (16, 8, 4, 2, 1):
+            if (window and mode == "open_close"
+                    and morph_items(ntaps, t1) > MORPH_ITEMS * 256):
+                continue
+            for stages in MORPH_STAGES:
+                nbytes = smem_bytes(ntaps, t1, T2, mode, stages, window)
+                if nbytes <= SMEM_LIMIT:
+                    break
+            else:
+                continue
+            tiles = math.ceil(n1 / t1) * math.ceil((n2 + shift) / T2)
+            chunks = max(1, min(n0, _MORPH_BLOCKS[mode] // tiles))
+            z = math.ceil(n0 / chunks)
+            if mode == "open_close":
+                # stage 1 runs over 2 (K0 - 1) planes more than a block
+                # writes: at least 8 (K0 - 1) planes a block keep that
+                # within a quarter
+                z = min(n0, max(z, 8 * (k0 - 1)))
+            return Plan(
+                shape=shape, ntaps=ntaps, t1=t1, t2=T2, z=z,
+                grid=(tiles, math.ceil(n0 / z)), smem_bytes=nbytes,
+                mode=mode, stages=stages, window=window, shift=shift,
+            )
+    raise ValueError(f"no tile fits the taps {ntaps} ({mode})")
+
+
+def plan(shape, ntaps, mode="separable", shift=0):
     """Tiles, grid and shared-memory bytes for a (n0, n1, n2) volume with
     ``ntaps`` taps (or window samples) per axis (1 for an axis that is not
     filtered), for one of the kernel's modes (:func:`smem_bytes`).  A
     ``"separable"`` call on one plane with axis 0 unfiltered (a 2-D
     array) takes the rows path: strips of ROW_W columns, and runs of rows
     (a multiple of ROW_STEP) that give about one resident wave of blocks.
-    Raises ValueError when not even a one-row tile fits."""
+    ``"open_close"`` and ``"pair"`` plan the morphology kernels
+    (:func:`_morph_plan`), whose tiles start ``shift`` columns left of
+    column 0 (where the plan's ``shift`` keeps it).  Raises ValueError
+    when not even a one-row tile fits."""
     n0, n1, n2 = (int(s) for s in shape)
     ntaps = tuple(int(k) for k in ntaps)
+    if mode in ("open_close", "pair"):
+        return _morph_plan((n0, n1, n2), ntaps, mode, int(shift))
     if mode == "separable" and n0 == 1 and ntaps[0] == 1:
         strips = math.ceil(n2 / ROW_W)
         rows = ROW_STEP * max(1, min(math.ceil(n1 / ROW_STEP), math.ceil(
@@ -234,10 +354,6 @@ def plan(shape, ntaps, mode="separable"):
     tiles = math.ceil(n1 / t1) * math.ceil(n2 / t2)
     chunks = max(1, min(n0, math.ceil(_TARGET_BLOCKS / tiles)))
     z = math.ceil(n0 / chunks)
-    if mode == "open_close":
-        # stage 1 runs over 2 (K0 - 1) planes more than a block writes:
-        # at least 8 (K0 - 1) planes a block keep that within a quarter
-        z = min(n0, max(z, 8 * (ntaps[0] - 1)))
     return Plan(
         shape=(n0, n1, n2), ntaps=ntaps, t1=t1, t2=t2, z=z,
         grid=(tiles, math.ceil(n0 / z)),
@@ -246,9 +362,11 @@ def plan(shape, ntaps, mode="separable"):
 
 
 def _fits(ntaps, mode):
-    """Whether a one-row tile of ``mode`` fits shared memory (the
-    planner's last resort)."""
-    return smem_bytes(ntaps, 1, T2, mode) <= SMEM_LIMIT
+    """Whether the planner fits a planes-path tile of morphology ``mode``
+    for these windows (its last resort: a one-row tile, one plane in
+    flight, rings in shared memory).  A 2-D array's rows path fits every
+    window of at most 64 samples."""
+    return smem_bytes(ntaps, 1, T2, mode, stages=1) <= SMEM_LIMIT
 
 
 def _supports_morph(x, sizes, mode):
@@ -256,17 +374,19 @@ def _supports_morph(x, sizes, mode):
             and x.ndim in (2, 3) and len(sizes) == x.ndim):
         return False
     ntaps = [1 if sz is None else max(int(sz), 1) for sz in sizes]
-    # a 2-D array runs as (1, n0, n1)
-    return max(ntaps) <= MAX_TAPS and _fits(
-        (1,) * (3 - x.ndim) + tuple(ntaps), mode)
+    if max(ntaps) > MAX_TAPS:
+        return False
+    # a 2-D array runs as (1, n0, n1), on its rows path
+    return x.ndim == 2 or _fits(tuple(ntaps), mode)
 
 
 def supports_open_close(x, sizes):
     """Whether one two-stage pass computes an opening or closing of
     ``x`` over a box of ``sizes``: a 2-D or 3-D float32 tensor (a CUDA
     one launches the kernel, a CPU one runs the plain version), at most
-    64 samples per axis, and a tile that the planner fits in 227 KB.
-    Where this is False the caller takes two min/max passes."""
+    64 samples per axis, and for a 3-D one a tile that the planner fits
+    in 227 KB (every 2-D window fits its rows path).  Where this is
+    False the caller takes two min/max passes."""
     return _supports_morph(x, sizes, "open_close")
 
 
@@ -307,24 +427,28 @@ def _check_input(x, *per_axis):
 
 
 @functools.lru_cache(maxsize=256)
-def _geometry(shape3, ntaps, mode):
+def _geometry(shape3, ntaps, mode, shift=0):
     """The kernel's dims and plan arguments (t1, z, grid, shared bytes,
-    path: 1 for the rows path, and a slot for the 16-byte flag), planned
-    once per shape, taps and mode."""
-    p = plan(shape3, ntaps, mode)
+    path: 1 for a rows path, a slot for the 16-byte flag, then the
+    morphology planes path's stages and register window, t2 and the
+    morphology modes' shift), planned once per shape, taps, mode and
+    shift."""
+    p = plan(shape3, ntaps, mode, shift)
     dims = np.asarray(shape3, np.int32)
     geom = np.asarray((p.t1, p.z, p.grid[0], p.grid[1], p.smem_bytes,
-                       int(p.mode == "rows"), 0), np.int32)
+                       int(p.mode.endswith("rows")), 0, p.stages, p.window,
+                       p.t2, p.shift), np.int32)
     dims.setflags(write=False)  # shared by every call of the cache
     geom.setflags(write=False)
     return dims, geom
 
 
-def _plan_args(x, shape3, ntaps, mode):
-    """``_geometry`` with its last entry set: whether rows may be read in
+def _plan_args(x, shape3, ntaps, mode, shift=0):
+    """``_geometry`` with its 16-byte flag set: whether rows may be read in
     16-byte chunks (an aligned array whose rows are a multiple of 16
     bytes)."""
-    dims, geom = _geometry(tuple(shape3), tuple(int(k) for k in ntaps), mode)
+    dims, geom = _geometry(tuple(shape3), tuple(int(k) for k in ntaps), mode,
+                           shift)
     geom = geom.copy()
     geom[6] = int(x.data_ptr() % 16 == 0 and shape3[2] % 4 == 0)
     return dims, geom
@@ -524,14 +648,13 @@ def fused_separable_minmax_ref(x, sizes, origins, modes, cval=0.0,
     return x.clone() if y is x else y
 
 
-def _launch_morph(x, sizes, origins1, origins2, modes, cval, kind):
-    """One launch of a morphology kernel (``kind`` in _MORPH_KINDS):
-    ``origins1`` are the windows' origins of stage 1 (or of both folds of
-    a pair), ``origins2`` those of stage 2."""
-    _check_input(x, sizes, origins1, origins2, modes)
+def _morph_info(x, sizes, origins1, origins2, modes):
+    """Per-axis (window, lead of stage 1, lead of stage 2, mode) of the
+    morphology kernels for ``x`` (as (n0, n1, n2)): ``origins1`` are the
+    windows' origins of stage 1 (or of both folds of a pair), ``origins2``
+    those of stage 2."""
     pad3 = 3 - x.ndim
-    shape3 = (1,) * pad3 + tuple(x.shape)
-    info = np.zeros((3, 4), np.int32)  # window, lead 1, lead 2, mode
+    info = np.zeros((3, 4), np.int32)
     info[:, 0] = 1
     for ax, (sz, o1, o2, mode) in enumerate(zip(sizes, origins1, origins2,
                                                  modes)):
@@ -543,12 +666,30 @@ def _launch_morph(x, sizes, origins1, origins2, modes, cval, kind):
                              "samples per axis")
         info[ax + pad3] = (int(sz), _window(int(sz), int(o1))[0],
                            _window(int(sz), int(o2))[0], _MODE_CODES[mode])
+    return info
+
+
+def _morph_args(x, sizes, origins1, origins2, modes, kind):
+    """The morphology kernel's dims, per-axis info (:func:`_morph_info`)
+    and plan arguments for a non-empty ``x``."""
+    info = _morph_info(x, sizes, origins1, origins2, modes)
+    shape3 = (1,) * (3 - x.ndim) + tuple(x.shape)
+    two = kind in ("opening", "closing")
+    # the input's lead along axis 2 (both stages' for the two-stage kernel)
+    lead2 = int(info[2, 1]) + (int(info[2, 2]) if two else 0)
+    dims, geom = _plan_args(x, shape3, info[:, 0],
+                            "open_close" if two else "pair", -lead2 % 4)
+    return dims, info, geom
+
+
+def _launch_morph(x, sizes, origins1, origins2, modes, cval, kind):
+    """One launch of a morphology kernel (``kind`` in _MORPH_KINDS)."""
+    _check_input(x, sizes, origins1, origins2, modes)
     y = torch.empty_like(x)
     if x.numel() == 0:
+        _morph_info(x, sizes, origins1, origins2, modes)
         return y
-    dims, geom = _plan_args(
-        x, shape3, info[:, 0],
-        "open_close" if kind in ("opening", "closing") else "pair")
+    dims, info, geom = _morph_args(x, sizes, origins1, origins2, modes, kind)
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream

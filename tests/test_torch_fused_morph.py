@@ -8,8 +8,11 @@
 - Under the morphology gate, against scipy's two calls, exactly; outside
   it (nearest, constant), against a float64 numpy statement of the
   extend-once contract, exactly.
-- The gates, the planner's fit for both modes, and the two-call route
-  the planner decides for windows that do not fit.
+- The gates, the planner's fit for both modes, its paths and register
+  windows, and the two-call route the planner decides for windows that
+  do not fit; every window the shared-ring layout fitted still fits.
+- A numpy model of the kernels' window fold (van Herk / Gil-Werman runs,
+  ``run_fold`` in the kernel) against direct windows, NaN included.
 - On a CUDA device only: a gated call launches its kernel once and
   never the plain version.
 """
@@ -232,6 +235,72 @@ def test_pair_rejects_unknown_combine():
                                       ("reflect",) * 2, 0.0, "sum")
 
 
+# -- the kernels' window fold -------------------------------------------------
+
+
+def _seg_fold(get, k, run, op):
+    """numpy statement of the kernel's seg_fold: ``run`` windows of ``k``
+    >= ``run`` samples, window j over get(j .. j + k - 1): the core
+    (samples run - 1 .. k - 1) once, a suffix fold of 0 .. run - 2 and a
+    prefix fold of k .. k + run - 2."""
+    core = get(run - 1)
+    for m in range(run, k):
+        core = op(core, get(m))
+    suf = [None] * (run - 1)
+    suf[run - 2] = get(run - 2)
+    for j in range(run - 3, -1, -1):
+        suf[j] = op(get(j), suf[j + 1])
+    out = [op(suf[0], core)]
+    pre = get(k)
+    for j in range(1, run - 1):
+        out.append(op(op(suf[j], core), pre))
+        pre = op(pre, get(k + j))
+    out.append(op(core, pre))
+    return out
+
+
+def _run_fold(get, k, run, op):
+    """numpy statement of the kernel's run_fold."""
+    if k >= run:
+        return _seg_fold(get, k, run, op)
+    if run > 4 and k >= 4:
+        return [v for h in range(run // 4)
+                for v in _seg_fold(lambda m, h=h: get(4 * h + m), k, 4, op)]
+    out = []
+    for j in range(run):
+        a = get(j)
+        for m in range(1, k):
+            a = op(a, get(j + m))
+        out.append(a)
+    return out
+
+
+@pytest.mark.parametrize("run", [4, 8])
+@pytest.mark.parametrize("is_min", [True, False])
+def test_model_of_the_window_fold_matches_direct_windows(run, is_min):
+    """Every window of 1..20 samples, runs of 4 (the planes path's axis
+    1) and 8 (the rows path), a line with NaN and signed zeros: the van
+    Herk / Gil-Werman order gives the direct fold's values exactly, NaN
+    where a window holds one (the NaN-keeping minimum and maximum are
+    associative)."""
+    rng = np.random.RandomState(3)
+    line = rng.randn(120).astype(np.float32)
+    line[rng.rand(120) < 0.05] = np.nan
+    line[[7, 31]] = 0.0
+    line[[8, 30]] = -0.0
+    xt = torch.from_numpy(line)
+    op = torch.minimum if is_min else torch.maximum
+    for k in range(1, 21):
+        n = len(line) - k + 1
+        ref = fs._box_fold(xt[None, None], (1, 1, k), is_min)[0, 0]
+        got = []
+        for j0 in range(0, n - run + 1, run):
+            got += _run_fold(lambda m: xt[j0 + m], k, run, op)
+        got = torch.stack(got)
+        assert torch.equal(got.isnan(), ref[: len(got)].isnan()), k
+        assert torch.equal(got.nan_to_num(7.0), ref[: len(got)].nan_to_num(7.0))
+
+
 # -- the gates ----------------------------------------------------------------
 
 
@@ -311,26 +380,87 @@ PLANS = [
     ((1, 4096, 4096), (1, 9, 9)),
 ])
 def test_planner_fits_both_modes(shape, ntaps, mode):
-    if not fs._fits(ntaps, mode):
+    if shape[0] > 1 and not fs._fits(ntaps, mode):
         with pytest.raises(ValueError):
             fs.plan(shape, ntaps, mode)
         return
     p = fs.plan(shape, ntaps, mode)
-    assert p.smem_bytes == fs.smem_bytes(ntaps, p.t1, p.t2, mode)
+    assert p.smem_bytes == fs.smem_bytes(ntaps, p.t1, p.t2, p.mode,
+                                         p.stages, p.window)
     assert p.smem_bytes <= fs.SMEM_LIMIT
+    # one plane with axis 0 unfiltered marches down rows; else planes,
+    # the axis-0 window in registers where it is 1, 3 or 5
+    if shape[0] == 1 and ntaps[0] == 1:
+        assert p.mode == mode + "_rows" and p.z == 1
+        assert p.t1 % fs.ROW_STEP == 0
+        assert p.t2 == ((fs.ROW_W - (ntaps[2] - 1)) // 4 * 4
+                        if mode == "open_close" else fs.ROW_W)
+    else:
+        assert p.mode == mode and p.t2 == fs.T2 and p.t1 <= 16
+        assert p.window in (0, ntaps[0])
+        if p.window and mode == "open_close":
+            assert fs.morph_items(ntaps, p.t1) <= fs.MORPH_ITEMS * 256
+
+
+@pytest.mark.parametrize("shape, ntaps, mode, want", [
+    # (mode, t1, t2, z, grid, stages, register window): the main path's
+    # six calls, and the rings and fewer stages the widest windows take
+    ((256, 256, 256), (5, 5, 5), "open_close",
+     ("open_close", 16, 64, 64, (64, 4), 4, 5)),
+    ((256, 256, 256), (3, 3, 3), "pair", ("pair", 16, 64, 43, (64, 6), 4, 3)),
+    ((1, 4096, 4096), (1, 7, 7), "open_close",
+     ("open_close_rows", 288, 120, 1, (525, 1), 4, 0)),
+    ((1, 4096, 4096), (1, 9, 9), "open_close",
+     ("open_close_rows", 288, 120, 1, (525, 1), 4, 0)),
+    ((1, 4096, 4096), (1, 5, 5), "open_close",
+     ("open_close_rows", 288, 124, 1, (510, 1), 4, 0)),
+    ((1, 4096, 4096), (1, 5, 5), "pair",
+     ("pair_rows", 352, 128, 1, (384, 1), 4, 0)),
+    ((30, 40, 70), (7, 7, 7), "open_close",
+     ("open_close", 16, 64, 30, (6, 1), 4, 0)),
+    ((30, 40, 70), (21, 21, 21), "open_close",
+     ("open_close", 2, 64, 30, (40, 1), 2, 0)),
+    ((12, 30, 70), (5, 21, 21), "open_close",
+     ("open_close", 4, 64, 12, (16, 1), 4, 5)),
+    ((16, 24, 40), (64, 64, 64), "pair",
+     ("pair", 4, 64, 1, (6, 16), 1, 0)),
+])
+def test_planner_paths_and_register_windows(shape, ntaps, mode, want):
+    p = fs.plan(shape, ntaps, mode)
+    assert (p.mode, p.t1, p.t2, p.z, p.grid, p.stages, p.window) == want
 
 
 @pytest.mark.parametrize("mode", ["open_close", "pair"])
 @pytest.mark.parametrize("shape, ntaps", PLANS)
 def test_planner_tiles_cover_output_exactly(shape, ntaps, mode):
-    if not fs._fits(ntaps, mode):
+    if shape[0] > 1 and not fs._fits(ntaps, mode):
         return
-    p = fs.plan(shape, ntaps, mode)
-    hits = np.zeros(shape, np.int32)
-    for bx in range(p.grid[0]):
-        for by in range(p.grid[1]):
-            hits[p.block_region(bx, by)] += 1
-    assert (hits == 1).all()
+    # the tiles and strips start 0..3 columns left of column 0
+    for shift in (0, 1, 2, 3):
+        p = fs.plan(shape, ntaps, mode, shift)
+        hits = np.zeros(shape, np.int32)
+        for bx in range(p.grid[0]):
+            for by in range(p.grid[1]):
+                hits[p.block_region(bx, by)] += 1
+        assert (hits == 1).all()
+
+
+def _ring_layout_fits(ntaps, mode):
+    """The windows the shared-ring layout of the morphology kernels fits
+    at its last resort (a one-row tile, two planes in flight, 4-byte
+    loads, rings of K0 planes for every window): the layout the planner
+    replaced, whose gate the new one must not narrow."""
+    k0, k1, k2 = ntaps
+    t1, t2 = 1, fs.T2
+    if mode == "open_close":
+        w1, w2 = t1 + k1 - 1, t2 + k2 - 1
+        h1, h2 = w1 + k1 - 1, w2 + k2 - 1
+        words = (h1 + h2 + 2 * h1 * h2 + h1 * w2 + (k0 + 1) * w1 * w2
+                 + w1 * t2 + k0 * t1 * t2)
+    else:
+        h1, h2 = t1 + k1 - 1, t2 + k2 - 1
+        words = h1 + h2 + 2 * h1 * h2 + 2 * h1 * t2 + 2 * k0 * t1 * t2
+    return 4 * words <= fs.SMEM_LIMIT
 
 
 def test_supports_rejects_exactly_what_does_not_fit():
@@ -341,8 +471,8 @@ def test_supports_rejects_exactly_what_does_not_fit():
         for k in range(1, 65):
             sizes = (k,) * x.ndim
             ntaps = (1,) * (3 - x.ndim) + sizes
-            fits = fs.smem_bytes(ntaps, 1, fs.T2, "open_close") <= \
-                fs.SMEM_LIMIT
+            # a 2-D array's rows path fits every window
+            fits = x.ndim == 2 or fs._fits(ntaps, "open_close")
             assert fs.supports_open_close(x, sizes) == fits
             if fits:
                 widest[x.ndim] = k
@@ -354,12 +484,25 @@ def test_supports_rejects_exactly_what_does_not_fit():
                             "open_close")
             # every pair window of at most 64 fits
             assert fs.supports_pair(x, sizes)
-    # the widest square/cube windows the two-stage planner fuses
-    assert widest == {2: 50, 3: 21}
+    # the widest square/cube windows the two-stage planner fuses (the
+    # shared-ring layout: 50 and 21)
+    assert widest == {2: 64, 3: 22}
     assert not fs.supports_open_close(x2, (65, 1))
     assert not fs.supports_pair(x2, (65, 1))
     assert not fs.supports_open_close(x2.double(), (3, 3))
     assert not fs.supports_pair(torch.zeros(2, 3, 4, 5), (3, 3, 3, 3))
+
+
+@pytest.mark.parametrize("mode", ["open_close", "pair"])
+def test_planner_declines_no_window_the_ring_layout_fitted(mode):
+    """The gates say no to nothing the shared-ring layout said yes to:
+    every 3-D window of at most 64 per axis it fitted still fits (2-D
+    windows all fit the rows path)."""
+    lost = [(k0, k1, k2) for k0 in range(1, 65) for k1 in range(1, 65)
+            for k2 in range(1, 65)
+            if _ring_layout_fits((k0, k1, k2), mode)
+            and not fs._fits((k0, k1, k2), mode)]
+    assert lost == []
 
 
 def test_planner_declined_window_takes_the_two_call_route(monkeypatch):
@@ -367,13 +510,17 @@ def test_planner_declined_window_takes_the_two_call_route(monkeypatch):
         raise AssertionError("the planner declined this window")
 
     monkeypatch.setattr(fs, "fused_separable_open_close", refuse)
-    x = np.random.RandomState(5).rand(70, 80).astype(np.float32)
-    assert not fs.supports_open_close(torch.from_numpy(x), (60, 60))
-    got = morph.grey_opening(torch.from_numpy(x), size=(60, 60))
+    # a 3-D cube wider than the planner fits (a 2-D window of at most 64
+    # always fits the rows path)
+    x = np.random.RandomState(5).rand(6, 40, 50).astype(np.float32)
+    assert not fs.supports_open_close(torch.from_numpy(x), (31, 31, 31))
+    got = morph.grey_opening(torch.from_numpy(x), size=(31, 31, 31))
     np.testing.assert_array_equal(got.numpy(),
-                                  sndi.grey_opening(x, size=(60, 60)))
+                                  sndi.grey_opening(x, size=(31, 31, 31)))
     with pytest.raises(AssertionError):
-        morph.grey_opening(torch.from_numpy(x), size=(45, 45))
+        morph.grey_opening(torch.from_numpy(x), size=(21, 21, 21))
+    with pytest.raises(AssertionError):
+        morph.grey_opening(torch.from_numpy(x[0]), size=(63, 63))
 
 
 def test_launch_rejects_a_cpu_tensor():
@@ -401,6 +548,7 @@ def test_gated_cuda_calls_launch_their_kernel_once(cuda, monkeypatch):
                  "fused_separable_minmax_ref"):
         monkeypatch.setattr(fs, name, refuse)
     x = torch.from_numpy(X3).cuda()
+    x2 = torch.from_numpy(X2).cuda()  # the rows path
     for call, counter in (
         (lambda: morph.grey_opening(x, size=5), fs.fused_separable_open_close),
         (lambda: morph.grey_closing(x, size=(3, 4, 2), mode="wrap"),
@@ -408,6 +556,9 @@ def test_gated_cuda_calls_launch_their_kernel_once(cuda, monkeypatch):
         (lambda: morph.morphological_gradient(x, size=3),
          fs.fused_separable_morph_pair),
         (lambda: morph.morphological_laplace(x, size=3, mode="constant"),
+         fs.fused_separable_morph_pair),
+        (lambda: morph.grey_opening(x2, size=9), fs.fused_separable_open_close),
+        (lambda: morph.morphological_gradient(x2, size=5),
          fs.fused_separable_morph_pair),
     ):
         before = (fs.fused_separable_open_close.launches,
