@@ -61,7 +61,20 @@ Phases, each fatal on failure (a traceback and a non-zero exit):
    257 taps, the Fourier filters on a 4096^2 spectrum, hilbert and
    resample on 2^20 samples (each call's launches of the FFT kernel's
    rows and strided entries against its route, or none where it takes
-   torch.fft; values vs scipy within 5e-4 of max|ref|);
+   torch.fft; values vs scipy within 5e-4 of max|ref|), and with cuDNN's
+   TF32 allowed, convolve2d (4096^2, 31x31), correlate2d (4096^2, 9x9,
+   symm) and wiener (4096^2, 5) on the dense kernel (one launch per
+   correlation), upfirdn (101 taps, 2^20, up 2, down 3) and
+   resample_poly (2^20, 2/3) in plain torch; then the measurements path,
+   its counts set to 0 before it (no kernel launched): label of 4096^2
+   blobs and of 256^3 blobs with the 3x3x3 structure (labels, numbering
+   and count exactly as scipy's; the propagation sweeps printed), the
+   labeled reductions over its N labels (sums, means, variances and
+   centres of mass within 1e-10 of max|ref|, extrema, positions,
+   medians, histograms and bounding boxes exactly), value_indices,
+   labeled_comprehension, remove_small_objects/holes, reconstruction of
+   a 2048^2 h-dome (sweeps printed), convex_hull_image and
+   skimage.measure.label, each against scipy on the host and timed;
 5. times from CUDA events (median over up to 100 launches after a
    warm-up), printed as one ``{"cases": ...}`` and one ``{"kernels":
    ...}`` JSON line, with each kernel's bound and a PyTorch yardstick
@@ -1355,10 +1368,14 @@ def signal_path(counters, torch, img, imgc):
     entry's two steps), the input read unpadded and only the "same"
     window written (a 31x31 second operand is transformed by a direct
     DFT product), its rows entry for the 1-D overlap-add blocks, and
-    torch.fft (no launch) where the gate declines the padded size.  The
-    counts are set to 0 just before this path and read just after.
-    Returns the path's launches, its inputs, and the plain-torch calls'
-    times."""
+    torch.fft (no launch) where the gate declines the padded size; then
+    the direct and polyphase calls (``bench_suite.py:748-757`` for the
+    last two): convolve2d, correlate2d and wiener on the dense kernel B2
+    (one launch per correlation), upfirdn and resample_poly in plain
+    torch (no launch), run with cuDNN's TF32 allowed, PyTorch's default,
+    so that a TF32 leak into them shows.  The counts are set to 0 just
+    before this path and read just after.  Returns the path's launches,
+    its inputs, and the times of the calls outside the FFT kernel."""
     import scipy.ndimage as sndi
     import scipy.signal as ss
 
@@ -1370,8 +1387,11 @@ def signal_path(counters, torch, img, imgc):
     x1 = rng.standard_normal(1 << 22).astype(np.float32)
     h257 = rng.standard_normal(257).astype(np.float32)
     xh = rng.standard_normal(1 << 20).astype(np.float32)
-    k31c, x1c, h257c, xhc = (torch.from_numpy(v).cuda()
-                             for v in (k31, x1, h257, xh))
+    k9 = rng.standard_normal((9, 9)).astype(np.float32)
+    h101 = rng.standard_normal(101).astype(np.float32)
+    k31c, x1c, h257c, xhc, k9c, h101c = (torch.from_numpy(v).cuda()
+                                         for v in (k31, x1, h257, xh, k9,
+                                                   h101))
     spec = torch.fft.rfft2(imgc)  # (4096, 2049) complex64
     spec_np = spec.cpu().numpy()
     f64 = np.float64
@@ -1431,12 +1451,51 @@ def signal_path(counters, torch, img, imgc):
          lambda: sig.resample(xhc, 699050),
          lambda: ss.resample(xh.astype(f64), 699050)),
     ]
+    # the direct and polyphase calls, run with TF32 allowed (index 11 on)
+    b2 = "fused_dense_correlate"
+    path += [
+        ("convolve2d(4096^2 f32, 31x31, same)", {b2: 1},
+         "fused_dense (B2), padded by the fill",
+         lambda: sig.convolve2d(imgc, k31c, "same"), conv2),
+        ("correlate2d(4096^2 f32, 9x9, same, symm)", {b2: 1},
+         "fused_dense (B2), padded symmetric",
+         lambda: sig.correlate2d(imgc, k9c, "same", boundary="symm"),
+         ref("corr9", lambda: sndi.correlate(img.astype(f64),
+                                             k9.astype(f64),
+                                             mode="reflect"))),
+        ("wiener(4096^2 f32, 5)", {b2: 2},
+         "fused_dense (B2) x2: local mean and mean square",
+         lambda: sig.wiener(imgc, 5),
+         ref("wiener", lambda: ss.wiener(img.astype(f64), 5))),
+        ("upfirdn(101 taps, 2^20 f32, up 2, down 3)", {},
+         "plain torch (one conv1d per phase, TF32 off)",
+         lambda: sig.upfirdn(h101c, xhc, 2, 3),
+         ref("upfirdn", lambda: ss.upfirdn(h101.astype(f64),
+                                           xh.astype(f64), 2, 3))),
+        ("resample_poly(2^20 f32, 2, 3)", {},
+         "plain torch (upfirdn, firwin on the host)",
+         lambda: sig.resample_poly(xhc, 2, 3),
+         ref("resample_poly", lambda: ss.resample_poly(xh.astype(f64),
+                                                       2, 3))),
+    ]
+    first_tf32 = 11
+
+    def run_call(i, call):
+        """``call()``, with cuDNN's TF32 allowed for the calls from
+        ``first_tf32`` on (PyTorch's default; main() turned it off)."""
+        saved = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = i >= first_tf32
+        try:
+            return call()
+        finally:
+            torch.backends.cudnn.allow_tf32 = saved
+
     for c in counters.values():
         c.launches = 0
     outputs = []
-    for label, _, _, run, _ in path:
+    for i, (label, _, _, run, _) in enumerate(path):
         before = {k: c.launches for k, c in counters.items()}
-        y = run()
+        y = run_call(i, run)
         delta = {k: c.launches - before[k] for k, c in counters.items()}
         outputs.append((y, delta))
     torch.cuda.synchronize()
@@ -1460,17 +1519,270 @@ def signal_path(counters, torch, img, imgc):
         print(f"signal path {label:44s} {planned:46s} "
               f"max_abs_err vs scipy {err:.3e} (atol {tol:.1e})")
     print(f"signal path launches: {json.dumps(launches)}")
-    for kernel in ("fft_rows", "fft_strided"):
+    for kernel in ("fft_rows", "fft_strided", b2):
         check(launches[kernel] >= 1,
-              f"fused_fft {kernel} not launched on the signal path")
+              f"{kernel} not launched on the signal path")
     del outputs
     plain_rows = []
-    for i in (1, 5, 7, 8, 9, 10):
+    for i in (1, 5, 7, 8, 9, 10) + tuple(range(first_tf32, len(path))):
         label, call = path[i][0], path[i][3]
-        ms = median_ms(call, n=10, n_warmup=2)
-        plain_rows.append({"case": label, "route": path[i][2], "ms": ms})
+        ms = median_ms(lambda i=i, call=call: run_call(i, call), n=10,
+                       n_warmup=2)
+        plain_rows.append({"case": label, "route": path[i][2], "ms": ms,
+                           "b2_launches": path[i][1].get(b2, 0)})
         print(f"signal path timed {label:44s} {ms:10.3f} ms ({path[i][2]})")
     return launches, dict(k31c=k31c, x1c=x1c, h257c=h257c), plain_rows
+
+
+def _levels_reference(levels):
+    """skimage.measure.label's result by scipy: scipy.ndimage.label of
+    each nonzero level (full connectivity), the components renumbered
+    1..N in raster order of their first pixel."""
+    import scipy.ndimage as sndi
+
+    st = np.ones((3,) * levels.ndim, bool)
+    parts = []  # (first flat index of each component, level, its labels)
+    for v in np.unique(levels[levels != 0]):
+        lab, n = sndi.label(levels == v, st)
+        _, first = np.unique(lab.ravel(), return_index=True)
+        parts.append((first[1:], lab, n))
+    order = np.argsort(np.concatenate([f for f, _, _ in parts]),
+                       kind="stable")
+    number = np.empty(order.size, np.int64)
+    number[order] = np.arange(1, order.size + 1)
+    out = np.zeros(levels.shape, np.int64)
+    start = 0
+    for _, lab, n in parts:
+        table = np.concatenate([[0], number[start:start + n]])
+        out = np.where(lab > 0, table[lab], out)
+        start += n
+    return out, order.size
+
+
+def _fixpoint_reference(seed, mask):
+    """Reconstruction by dilation on the host: scipy's 3x3 grey dilation
+    and a minimum with the mask, iterated until nothing changes."""
+    import scipy.ndimage as sndi
+
+    rec = seed
+    while True:
+        new = np.minimum(sndi.grey_dilation(rec, size=(3, 3),
+                                            mode="nearest"), mask)
+        if np.array_equal(new, rec):
+            return rec
+        rec = new
+
+
+def measurements_path(counters, torch, x2):
+    """Phase 4, measurements: scipy.ndimage.label and the labeled
+    reductions, skimage's small-object filters, reconstruction, convex
+    hull and measure.label at full size, in plain torch on the card (no
+    kernel of the port is on this path: every count must stay 0; the
+    counts are set to 0 just before it and read just after).  Each call
+    is held against scipy on the host: labels, numbering and counts,
+    extrema, positions, medians, histograms, bounding boxes and masks
+    exactly; the float64 sums, means, variances, deviations and centres
+    of mass within 1e-10 of the largest reference value.  Prints the
+    propagation sweeps of label and reconstruction, and times each call
+    (median of 10 after 2 warm-ups).  Returns the calls' rows."""
+    import scipy.ndimage as sndi
+    from scipy.spatial import ConvexHull
+
+    import cupyimg_tpu_torch.scipy.ndimage as ndi
+    import cupyimg_tpu_torch.skimage.measure as skmeasure
+    import cupyimg_tpu_torch.skimage.morphology as skm
+    from cupyimg_tpu_torch.scipy.ndimage import measurements as meas
+    from cupyimg_tpu_torch.skimage.morphology import greyreconstruct
+
+    rng = np.random.default_rng(3)
+    f64 = np.float64
+    b2 = _blobs((4096, 4096), 15, 0.5, rng)
+    b3 = _blobs((256, 256, 256), 5, 0.5, rng)
+    # distinct float32 values k / 2^24 (exact), so that no label ties at
+    # its extremum and positions are unique
+    vals = (rng.permutation(1 << 24) * 2.0 ** -24).astype(np.float32)
+    vals = vals.reshape(4096, 4096)
+    box3 = np.ones((3, 3, 3), bool)
+    field = sndi.uniform_filter(rng.random((2048, 2048), dtype=np.float32),
+                                9)
+    levels = np.searchsorted(np.quantile(field, [0.25, 0.5, 0.75]),
+                             field).astype(np.int32)
+    del field
+    pts = np.zeros(2048 * 2048, bool)
+    pts[rng.choice(pts.size, 1000, replace=False)] = True
+    pts = pts.reshape(2048, 2048)
+    b2c, b3c, valsc, levelsc, ptsc = (torch.from_numpy(v).cuda()
+                                      for v in (b2, b3, vals, levels, pts))
+    x2c = torch.from_numpy(x2).cuda()
+    seed2c = x2c - 0.1
+    torch.cuda.synchronize()
+
+    for c in counters.values():
+        c.launches = 0
+    meas.label.sweeps = 0
+    lab2c, n2c = ndi.label(b2c)
+    sweeps2 = meas.label.sweeps
+    lab3c, n3c = ndi.label(b3c, box3)
+    sweeps3 = meas.label.sweeps - sweeps2
+    lab2 = lab2c.cpu().numpy()
+    n2 = int(n2c)
+    index = np.arange(1, n2 + 1)
+    crop = np.ascontiguousarray(lab2[:1024, :1024])
+    cropc = torch.from_numpy(crop).cuda()
+    ten = np.linspace(1, n2, 10).astype(np.int64)
+    greyreconstruct.reconstruction.sweeps = 0
+    # (label, call); results checked below, each call's value kept
+    calls = [
+        ("label(4096^2 bool blobs)", lambda: ndi.label(b2c)),
+        ("label(256^3 bool blobs, 3x3x3)", lambda: ndi.label(b3c, box3)),
+        ("sum(4096^2 f32, labels, 1..N)",
+         lambda: ndi.sum(valsc, lab2c, index)),
+        ("mean(4096^2 f32, labels, 1..N)",
+         lambda: ndi.mean(valsc, lab2c, index)),
+        ("variance(4096^2 f32, labels, 1..N)",
+         lambda: ndi.variance(valsc, lab2c, index)),
+        ("standard_deviation(4096^2 f32, labels, 1..N)",
+         lambda: ndi.standard_deviation(valsc, lab2c, index)),
+        ("center_of_mass(4096^2 f32, labels, 1..N)",
+         lambda: ndi.center_of_mass(valsc, lab2c, index)),
+        ("minimum(4096^2 f32, labels, 1..N)",
+         lambda: ndi.minimum(valsc, lab2c, index)),
+        ("maximum(4096^2 f32, labels, 1..N)",
+         lambda: ndi.maximum(valsc, lab2c, index)),
+        ("minimum_position(4096^2 f32, labels, 1..N)",
+         lambda: ndi.minimum_position(valsc, lab2c, index)),
+        ("maximum_position(4096^2 f32, labels, 1..N)",
+         lambda: ndi.maximum_position(valsc, lab2c, index)),
+        ("extrema(4096^2 f32, labels, 1..N)",
+         lambda: ndi.extrema(valsc, lab2c, index)),
+        ("median(4096^2 f32, labels, 1..N)",
+         lambda: ndi.median(valsc, lab2c, index)),
+        ("histogram(4096^2 f32, 0, 1, 16, labels, 1..N)",
+         lambda: ndi.histogram(valsc, 0, 1, 16, lab2c, index)),
+        ("find_objects(4096^2 labels)", lambda: ndi.find_objects(lab2c)),
+        ("value_indices(1024^2 labels)", lambda: ndi.value_indices(cropc)),
+        ("labeled_comprehension(4096^2 f32, ten labels, np.ptp)",
+         lambda: ndi.labeled_comprehension(valsc, lab2c, ten, np.ptp, f64,
+                                           -1.0)),
+        ("remove_small_objects(4096^2 bool blobs, 64)",
+         lambda: skm.remove_small_objects(b2c, 64)),
+        ("remove_small_holes(4096^2 bool blobs, 64)",
+         lambda: skm.remove_small_holes(b2c, 64)),
+        ("reconstruction(2048^2 f32 h-dome, seed = image - 0.1)",
+         lambda: skm.reconstruction(seed2c, x2c)),
+        ("convex_hull_image(2048^2, 1000 points)",
+         lambda: skm.convex_hull_image(ptsc)),
+        ("skimage.measure.label(2048^2 i32, 4 levels)",
+         lambda: skmeasure.label(levelsc)),
+    ]
+    rec_sweeps = None
+    results = {}
+    for label, call in calls:
+        if label.startswith("reconstruction"):
+            greyreconstruct.reconstruction.sweeps = 0
+            results[label] = call()
+            rec_sweeps = greyreconstruct.reconstruction.sweeps
+        else:
+            results[label] = call()
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    check(all(n == 0 for n in launches.values()),
+          f"the measurements path launched a kernel: {launches}")
+
+    def exact(label, got, ref):
+        got = got.cpu().numpy() if isinstance(got, torch.Tensor) else got
+        check(np.array_equal(np.asarray(got), np.asarray(ref)),
+              f"{label}: differs from scipy")
+        return "exact"
+
+    def close(label, got, ref):
+        got = got.cpu().numpy() if isinstance(got, torch.Tensor) else got
+        got, ref = np.asarray(got, f64), np.asarray(ref, f64)
+        check(got.shape == ref.shape, f"{label}: shape {got.shape}")
+        err = float(np.abs(got - ref).max() / np.abs(ref).max())
+        check(err <= 1e-10, f"{label}: disagrees with scipy ({err:.3e})")
+        return f"{err:.3e} of max|ref| (tol 1e-10)"
+
+    checks = {}
+    ref2, rn2 = sndi.label(b2)
+    check(lab2c.dtype == torch.int32 and n2c.dtype == torch.int32
+          and n2c.ndim == 0 and n2c.is_cuda, "label: dtypes")
+    check(n2 == rn2, f"label 4096^2: {n2} features, scipy {rn2}")
+    checks[calls[0][0]] = exact(calls[0][0], lab2, ref2)
+    ref3, rn3 = sndi.label(b3, box3)
+    check(int(n3c) == rn3, f"label 256^3: {int(n3c)} features, scipy {rn3}")
+    checks[calls[1][0]] = exact(calls[1][0], lab3c, ref3)
+    del ref3, lab3c
+    v64 = vals.astype(f64)
+    for i, fn in ((2, "sum"), (3, "mean"), (4, "variance"),
+                  (5, "standard_deviation"), (6, "center_of_mass")):
+        checks[calls[i][0]] = close(calls[i][0], results[calls[i][0]],
+                                    getattr(sndi, fn)(v64, lab2, index))
+    ext = sndi.extrema(vals, lab2, index)
+    for i, k in ((7, 0), (8, 1), (9, 2), (10, 3)):
+        checks[calls[i][0]] = exact(calls[i][0], results[calls[i][0]],
+                                    ext[k])
+    got = results[calls[11][0]]
+    for k in range(4):
+        exact(calls[11][0], got[k], ext[k])
+    checks[calls[11][0]] = "exact"
+    checks[calls[12][0]] = exact(calls[12][0], results[calls[12][0]],
+                                 sndi.median(vals, lab2, index))
+    hist = results[calls[13][0]]
+    checks[calls[13][0]] = exact(
+        calls[13][0], torch.stack(hist),
+        np.stack(sndi.histogram(vals, 0, 1, 16, lab2, index)))
+    check(results[calls[14][0]] == sndi.find_objects(lab2),
+          "find_objects differs from scipy")
+    checks[calls[14][0]] = "exact"
+    got, ref = results[calls[15][0]], sndi.value_indices(crop)
+    check(list(got) == list(ref) and all(
+        all(np.array_equal(a, b) for a, b in zip(got[k], ref[k]))
+        for k in ref), "value_indices differs from scipy")
+    checks[calls[15][0]] = "exact"
+    checks[calls[16][0]] = exact(
+        calls[16][0], results[calls[16][0]],
+        sndi.labeled_comprehension(vals, lab2, ten, np.ptp, f64, -1.0))
+    sizes = np.bincount(ref2.ravel())
+    checks[calls[17][0]] = exact(calls[17][0], results[calls[17][0]],
+                                 b2 & (sizes[ref2] >= 64))
+    holes, _ = sndi.label(~b2)
+    hsizes = np.bincount(holes.ravel())
+    checks[calls[18][0]] = exact(calls[18][0], results[calls[18][0]],
+                                 ~(~b2 & (hsizes[holes] >= 64)))
+    del holes, ref2
+    checks[calls[19][0]] = exact(calls[19][0], results[calls[19][0]],
+                                 _fixpoint_reference(x2 - np.float32(0.1),
+                                                     x2))
+    corners = (np.argwhere(pts).astype(f64)[:, None, :] + np.array(
+        [[-0.5, 0], [0.5, 0], [0, -0.5], [0, 0.5]])).reshape(-1, 2)
+    eq = ConvexHull(corners).equations
+    rr = np.arange(2048, dtype=f64)[:, None]
+    cc = np.arange(2048, dtype=f64)[None, :]
+    hull = np.ones((2048, 2048), bool)
+    for a0, a1, b in eq:  # the port's order of operations, in float64
+        hull &= (b + rr * a0) + cc * a1 < 1e-10
+    checks[calls[20][0]] = exact(calls[20][0], results[calls[20][0]], hull)
+    lev_ref, lev_n = _levels_reference(levels)
+    got = results[calls[21][0]]
+    check(got.dtype == torch.int32 and int(got.max()) == lev_n,
+          f"measure.label: {int(got.max())} labels, reference {lev_n}")
+    checks[calls[21][0]] = exact(calls[21][0], got, lev_ref)
+    del results, lev_ref
+    print(f"measurements path label 4096^2: {n2} features in {sweeps2} "
+          f"sweeps; 256^3 (3x3x3): {rn3} features in {sweeps3} sweeps; "
+          f"reconstruction 2048^2: {rec_sweeps} sweeps")
+    print(f"measurements path launches: {json.dumps(launches)}")
+    rows = []
+    for label, call in calls:
+        ms = median_ms(call, n=10, n_warmup=2)
+        rows.append({"case": label, "route": "plain torch", "ms": ms,
+                     "check": checks[label]})
+        print(f"measurements path {label:54s} {ms:10.3f} ms (plain torch) "
+              f"vs scipy: {checks[label]}")
+    rows[0]["sweeps"], rows[1]["sweeps"] = sweeps2, sweeps3
+    rows[19]["sweeps"] = rec_sweeps
+    return rows
 
 
 def fft_bound(numel, n, in_bytes, out_bytes, mul_bytes=0):
@@ -1920,6 +2232,8 @@ def main():
     })
     sig_launches, sig_inputs, sig_plain_rows = signal_path(
         all_counters, torch, img, imgc)
+    meas_rows = measurements_path(all_counters, torch, x2)
+    torch.cuda.empty_cache()
 
     # -- phase 5: times -----------------------------------------------------
     F = torch.nn.functional
@@ -2266,7 +2580,8 @@ def main():
     torch.cuda.empty_cache()
 
     print(json.dumps({"card": card, "cases": list(rows.values()),
-                      "plain_torch": plain_rows + sig_plain_rows,
+                      "plain_torch": plain_rows + sig_plain_rows
+                      + meas_rows,
                       "end_to_end": [fft_e2e], "conv_methods": conv_methods}))
     stencil = "cupyimg_tpu/ops/pallas_stencil.py"
     kernels = [
@@ -2364,6 +2679,10 @@ def main():
             "loss_ms": loss,
             "loss_launches_timed": covered,
         })
+    for entry in line:  # B2 also runs on the signal path (2-D calls)
+        if entry["name"] == "fused_dense_correlate":
+            entry["launches_signal_path"] = sig_launches[
+                "fused_dense_correlate"]
     line[-1]["entries"] = [
         {k: rows[lb][k] for k in ("case", "ms", "kernel_ms", "plain_ms",
                                   "bound_ms", "bound_by", "library_ms",

@@ -1,6 +1,6 @@
 """scipy.ndimage-compatible API on torch tensors: the filters, the
-interpolation functions, morphology, the distance transforms and the
-Fourier-domain filters."""
+interpolation functions, morphology, the distance transforms, the
+Fourier-domain filters and the measurements."""
 
 from cupyimg_tpu_torch.scipy.ndimage.filters import (  # noqa: F401
     generic_filter,
@@ -68,3 +68,39 @@ from cupyimg_tpu_torch.scipy.ndimage.fourier import (  # noqa: F401
     fourier_shift,
     fourier_ellipsoid,
 )
+from cupyimg_tpu_torch.scipy.ndimage.measurements import (  # noqa: F401
+    label,
+    sum,
+    sum_labels,
+    mean,
+    variance,
+    standard_deviation,
+    minimum,
+    maximum,
+    median,
+    minimum_position,
+    maximum_position,
+    extrema,
+    center_of_mass,
+    histogram,
+    labeled_comprehension,
+    find_objects,
+    value_indices,
+)
+
+# the spline prefilter's internals (poles, gain, and a callable applying
+# the prefilter along axis 0)
+from cupyimg_tpu_torch.ops.iir import get_poles, get_gain  # noqa: F401,E402
+
+
+def get_raw_spline1d_kernel(order, mode):
+    """A callable applying the order-``order`` spline prefilter along axis
+    0 of a float tensor by the recursion, in the boundary family of the
+    ndimage ``mode``."""
+    from cupyimg_tpu_torch.ops import iir as _iir
+
+    def kernel(x):
+        nb = _iir._n_boundary(get_poles(order), _iir._real_np_dtype(x.dtype))
+        return _iir._apply_axis0(x, order, _iir.get_spline_mode(mode), nb)
+
+    return kernel

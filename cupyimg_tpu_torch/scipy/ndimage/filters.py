@@ -213,10 +213,16 @@ def convolve(
 
 
 def _correlate1d(
-    input, weights, axis, output, mode, cval, origin, convolution, dtype_mode
+    input, weights, axis, output, mode, cval, origin, convolution, dtype_mode,
+    crop=True,
 ):
-    """1-d correlate/convolve along an axis."""
+    """1-d correlate/convolve along an axis; ``crop=False`` gives the
+    'full' correlation, ``n + size - 1`` samples along ``axis``."""
     dtype_mode = _default_dtype_mode(dtype_mode)
+    if dtype_mode == "numpy":
+        raise NotImplementedError(
+            "dtype_mode='numpy' is not ported to cupyimg_tpu_torch yet"
+        )
     input = util.as_tensor(input)
     weights = _as_weights(weights)
     if weights.ndim != 1:
@@ -224,7 +230,8 @@ def _correlate1d(
     boundary.check_mode(mode)
     axis = util.check_axis(axis, input.ndim)
     origin = int(origin)
-    util.check_origin(origin, weights.shape[0])
+    if crop:
+        util.check_origin(origin, weights.shape[0])
     if convolution:
         weights = weights[::-1]
         origin = -origin
@@ -237,12 +244,36 @@ def _correlate1d(
         input.dtype, weights.dtype, dtype_mode
     )
     out_dtype = dtypes.resolve_output_dtype(output, input.dtype, acc_dtype)
+    if not crop:
+        acc = _full_correlate1d(input, weights, axis, mode, cval, acc_dtype)
+        return _cast_output(acc, out_dtype)
     if input.numel() == 0:  # scipy shape-preserves empty inputs
         return input.new_zeros(input.shape, dtype=dtypes.to_torch(out_dtype))
     acc = stencil.correlate1d_axis(
         input, weights, axis, mode, cval, origin, acc_dtype
     )
     return _cast_output(acc, out_dtype)
+
+
+def _full_correlate1d(x, weights, axis, mode, cval, acc_dtype):
+    """'full' 1-d correlation: ``n + size - 1`` samples along ``axis``,
+    the input extended by ``size - 1`` on both sides (the per-axis plain
+    path: the output is longer than the input, which B1 does not write)."""
+    size = weights.shape[0]
+    out_len = x.shape[axis] + size - 1
+    pad_width = [(0, 0)] * x.ndim
+    pad_width[axis] = (size - 1, size - 1)
+    xp = boundary.pad(x, pad_width, mode, cval).to(
+        dtypes.to_torch(acc_dtype))
+    out = None
+    for k in np.flatnonzero(weights):
+        term = stencil._scalar(weights[k]) * xp.narrow(axis, int(k), out_len)
+        out = term if out is None else out + term
+    if out is None:  # all-zero weights
+        shape = list(x.shape)
+        shape[axis] = out_len
+        out = xp.new_zeros(shape)
+    return out
 
 
 def correlate1d(
@@ -254,11 +285,18 @@ def correlate1d(
     cval=0.0,
     origin=0,
     *,
+    backend=None,
     dtype_mode=None,
+    crop=True,
 ):
-    """1-d correlation along the given axis (scipy.ndimage.correlate1d parity)."""
+    """1-d correlation along the given axis (scipy.ndimage.correlate1d
+    parity).  ``crop=False`` returns the 'full' correlation, ``n + size -
+    1`` samples along ``axis`` (``origin`` is then ignored).  ``backend``
+    is accepted for API parity and ignored: there is one engine."""
+    del backend
     return _correlate1d(
-        input, weights, axis, output, mode, cval, origin, False, dtype_mode
+        input, weights, axis, output, mode, cval, origin, False, dtype_mode,
+        crop=crop,
     )
 
 
@@ -271,9 +309,22 @@ def convolve1d(
     cval=0.0,
     origin=0,
     *,
+    backend=None,
     dtype_mode=None,
+    crop=True,
 ):
-    """1-d convolution along the given axis (scipy.ndimage.convolve1d parity)."""
+    """1-d convolution along the given axis (scipy.ndimage.convolve1d
+    parity; ``crop`` and ``backend`` as in :func:`correlate1d`)."""
+    del backend
+    if not crop:
+        # the full convolution: flipped weights, no origin; the
+        # correlation conjugates complex weights, which a convolution must
+        # not, so they are conjugated here first to cancel it
+        w = _as_weights(weights)[::-1]
+        if w.dtype.kind == "c":
+            w = w.conj()
+        return _correlate1d(input, w, axis, output, mode, cval, 0, False,
+                            dtype_mode, crop=False)
     return _correlate1d(
         input, weights, axis, output, mode, cval, origin, True, dtype_mode
     )

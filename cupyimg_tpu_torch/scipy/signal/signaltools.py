@@ -3,7 +3,9 @@
 The port of ``cupyimg_tpu/scipy/signal/signaltools.py``'s FFT half:
 ``fftconvolve``, ``oaconvolve``, ``convolve``/``correlate`` with their
 method dispatch (``choose_conv_method``), ``hilbert``, ``hilbert2``,
-``resample`` and ``next_fast_len``.
+``resample`` and ``next_fast_len``; and its direct 2-D half:
+``convolve2d``/``correlate2d`` with their boundaries, ``wiener``, and
+the polyphase ``resample_poly`` on ``upfirdn`` (``_upfirdn.py``).
 
 A real float32 (or narrower) product on a CUDA tensor runs on the
 hand-written FFT kernel (``ops/fused_fft.py``) when the gate takes the
@@ -36,17 +38,27 @@ import numpy as np
 import torch
 
 from cupyimg_tpu_torch.core import dtypes, util
+from cupyimg_tpu_torch.core.boundary import pad as boundary_pad
 from cupyimg_tpu_torch.ops import fused_dense, fused_fft
+from cupyimg_tpu_torch.scipy.signal._upfirdn import (
+    upfirdn,
+    upfirdn_modes,
+    upfirdn_out_len,
+)
 
 __all__ = [
     "choose_conv_method",
     "convolve",
     "correlate",
+    "convolve2d",
+    "correlate2d",
+    "wiener",
     "fftconvolve",
     "oaconvolve",
     "hilbert",
     "hilbert2",
     "resample",
+    "resample_poly",
     "next_fast_len",
 ]
 
@@ -486,16 +498,38 @@ def _direct_corr_real(xp, w, out_shape):
         return conv(xp[None, None], wt[None, None])[0, 0]
 
 
+def _accumulator(dtype):
+    """The dtype a direct correlation of result ``dtype`` sums in:
+    float64 for integers and bool, at least float32 otherwise."""
+    if dtype.kind in "iub":
+        return np.dtype(np.float64)
+    return np.promote_types(dtype, np.float32) if dtype.kind == "f" else dtype
+
+
+def _direct_corr(xp, w, out_shape):
+    """:func:`_direct_corr_real` of the padded ``xp`` (in its accumulator
+    dtype) with host weights ``w``; complex operands as four real
+    products."""
+    acc = _np_dtype(xp)
+    if acc.kind != "c":
+        return _direct_corr_real(xp, w.astype(acc), out_shape)
+    real = np.dtype(acc.char.lower())
+    wr, wi = w.real.astype(real), w.imag.astype(real)
+    xr, xi = xp.real.contiguous(), xp.imag.contiguous()
+    rr = _direct_corr_real(xr, wr, out_shape)
+    ii = _direct_corr_real(xi, wi, out_shape)
+    ri = _direct_corr_real(xr, wi, out_shape)
+    ir = _direct_corr_real(xi, wr, out_shape)
+    return torch.complex(rr - ii, ir + ri)
+
+
 def _direct_correlate_nd(in1, w, mode):
     """Direct nd correlation ``out[i] = sum_k w[k] in1[i+k]`` with zero
     extension, modes full/same/valid; ``w`` (numpy) is used as given
     (callers conjugate or flip)."""
     s1, s2 = in1.shape, w.shape
     dtype = np.promote_types(_np_dtype(in1), w.dtype)
-    is_int = dtype.kind in "iub"
-    acc = np.dtype(np.float64 if is_int else dtype)
-    if acc.kind == "f":
-        acc = np.promote_types(acc, np.float32)
+    acc = _accumulator(dtype)
     if mode in ("full", "same"):
         pads = [(k - 1, k - 1) for k in s2]
     elif mode == "valid":
@@ -505,20 +539,10 @@ def _direct_correlate_nd(in1, w, mode):
                          "'full'")
     xp = _zero_pad(in1.to(dtypes.to_torch(acc)), pads)
     out_shape = tuple(xp.shape[i] - s2[i] + 1 for i in range(in1.ndim))
-    if acc.kind == "c":
-        real = np.dtype(acc.char.lower())
-        wr, wi = w.real.astype(real), w.imag.astype(real)
-        xr, xi = xp.real.contiguous(), xp.imag.contiguous()
-        rr = _direct_corr_real(xr, wr, out_shape)
-        ii = _direct_corr_real(xi, wi, out_shape)
-        ri = _direct_corr_real(xr, wi, out_shape)
-        ir = _direct_corr_real(xi, wr, out_shape)
-        out = torch.complex(rr - ii, ir + ri)
-    else:
-        out = _direct_corr_real(xp, w.astype(acc), out_shape)
+    out = _direct_corr(xp, w, out_shape)
     if mode == "same":
         out = _centered(out, s1)
-    if is_int:
+    if dtype.kind in "iub":
         out = torch.round(out)
     return out.to(dtypes.to_torch(dtype))
 
@@ -618,6 +642,220 @@ def correlate(in1, in2, mode="full", method="auto"):
     if swapped:
         out = _reverse_and_conj(out)
     return out
+
+
+# ---------------------------------------------------------------------------
+# 2-D direct convolution with boundaries, and the Wiener filter
+# ---------------------------------------------------------------------------
+
+
+_BOUNDARY_MODES = {"fill": "constant", "wrap": "grid-wrap",
+                   "symm": "reflect"}
+
+
+def _boundary_pad_2d(in1, s2, boundary, fillvalue):
+    """``in1`` extended by ``k - 1`` on both sides of each axis, ``k`` the
+    second operand's size: zeros or ``fillvalue`` ("fill"), periodic
+    ("wrap") or mirrored with the edge repeated ("symm")."""
+    if boundary not in _BOUNDARY_MODES:
+        raise ValueError(
+            "Acceptable boundary flags are 'fill', 'circular' (or 'wrap'), "
+            f"and 'symmetric' (or 'symm'); got {boundary}"
+        )
+    pads = [(k - 1, k - 1) for k in s2]
+    return boundary_pad(in1, pads, _BOUNDARY_MODES[boundary], fillvalue)
+
+
+def _conv2d_common(in1, in2, mode, boundary, fillvalue, convolution):
+    in1, in2 = _operands(in1, in2)
+    if in1.ndim != 2 or in2.ndim != 2:
+        raise ValueError("convolve2d inputs must both be 2-D arrays")
+    boundary = {"circular": "wrap", "symmetric": "symm"}.get(boundary,
+                                                             boundary)
+    dtype = np.promote_types(_np_dtype(in1), _np_dtype(in2))
+    fv = np.asarray(fillvalue)
+    if boundary == "fill":
+        # fillvalue must be a scalar castable to the output dtype without
+        # discarding an imaginary part
+        if fv.size != 1:
+            raise ValueError(
+                "`fillvalue` must be scalar or an array with one element"
+            )
+        if fv.dtype.kind == "c" and dtype.kind != "c" and np.any(
+                fv.imag != 0):
+            raise ValueError(
+                "could not cast `fillvalue` directly to the output dtype"
+            )
+    swapped = _inputs_swap_needed(mode, in1.shape, in2.shape)
+    if swapped:
+        in1, in2 = in2, in1
+    w = in2.cpu().numpy()  # the dense kernel's weights live on the host
+    w = np.flip(w) if convolution else np.conj(w)
+    s1, s2 = in1.shape, w.shape
+    acc = _accumulator(dtype)
+    fill = fv.reshape(()).item()
+    if acc.kind != "c":
+        fill = complex(fill).real
+    xp = _boundary_pad_2d(in1.to(dtypes.to_torch(acc)), s2, boundary, fill)
+    full = _direct_corr(xp, w, tuple(xp.shape[i] - s2[i] + 1
+                                      for i in range(2)))
+    if mode == "full":
+        out = full
+    elif mode == "same":
+        if convolution:
+            out = _centered(full, s1)
+        else:
+            # correlate2d centres the window at k // 2, one to the right
+            # of convolve2d's (k - 1) // 2 for even kernels
+            out = full[s2[0] // 2:s2[0] // 2 + s1[0],
+                       s2[1] // 2:s2[1] // 2 + s1[1]]
+    elif mode == "valid":
+        out = _centered(full, [s1[i] - s2[i] + 1 for i in range(2)])
+    else:
+        raise ValueError("acceptable mode flags are 'valid', 'same', or "
+                         "'full'")
+    if not convolution and swapped:
+        # correlation is not symmetric in its operands: scipy computes
+        # with them swapped and reverses the result on both axes
+        out = torch.flip(out, (0, 1))
+    if dtype.kind in "iub":
+        out = torch.round(out)
+    return out.to(dtypes.to_torch(dtype))
+
+
+def convolve2d(in1, in2, mode="full", boundary="fill", fillvalue=0):
+    """2-D convolution with boundary handling (scipy.signal.convolve2d);
+    a float32 CUDA call the dense kernel's gate admits runs on it."""
+    return _conv2d_common(in1, in2, mode, boundary, fillvalue, True)
+
+
+def correlate2d(in1, in2, mode="full", boundary="fill", fillvalue=0):
+    """2-D cross-correlation with boundary handling
+    (scipy.signal.correlate2d)."""
+    return _conv2d_common(in1, in2, mode, boundary, fillvalue, False)
+
+
+def wiener(im, mysize=None, noise=None):
+    """Wiener filter (scipy.signal.wiener): the local mean and variance
+    over a ``mysize`` window are two direct correlations with ones (the
+    dense kernel for float32 on the card); the result keeps a floating
+    input's dtype (scipy's is float64), integers give float64."""
+    im = util.as_tensor(im)
+    if not (im.is_floating_point() or im.is_complex()):
+        im = im.to(torch.float64)
+    if mysize is None:
+        mysize = [3] * im.ndim
+    mysize = util.fix_sequence_arg(mysize, im.ndim, "mysize", int)
+    size = float(np.prod(mysize))
+    ones = np.ones(mysize, dtypes.to_numpy(im.real.dtype if im.is_complex()
+                                           else im.dtype))
+    l_mean = _direct_correlate_nd(im, ones, "same") / size
+    l_var = _direct_correlate_nd(im * im, ones, "same") / size - (
+        l_mean * l_mean)
+    if noise is None:
+        noise = (l_var.real if l_var.is_complex() else l_var).mean()
+    res = im - l_mean
+    res = res * (1.0 - noise / torch.where(l_var == 0, 1.0, l_var))
+    res = res + l_mean
+    if l_var.is_complex():  # numpy's order of complex numbers: lexicographic
+        below = (l_var.real < noise) | ((l_var.real == noise)
+                                        & (l_var.imag < 0))
+    else:
+        below = l_var < noise
+    return torch.where(below, l_mean, res)
+
+
+# ---------------------------------------------------------------------------
+# polyphase resampling
+# ---------------------------------------------------------------------------
+
+
+def _median_keepdims(x, axis):
+    """numpy's median along ``axis`` (the mean of the two middle values of
+    an even count; NaN if the axis holds one), dims kept."""
+    s = torch.sort(x, dim=axis).values
+    n = x.shape[axis]
+    med = (s.narrow(axis, (n - 1) // 2, 1) + s.narrow(axis, n // 2, 1)) / 2
+    nan = torch.isnan(x).any(dim=axis, keepdim=True)
+    return torch.where(nan, torch.nan, med) if x.is_floating_point() else med
+
+
+def resample_poly(x, up, down, axis=0, window=("kaiser", 5.0),
+                  padtype="constant", cval=None):
+    """Polyphase resampling (scipy.signal.resample_poly, with its
+    padtypes): a FIR low-pass designed on the host (``scipy.signal.
+    firwin``, in a floating ``x``'s dtype as scipy casts it), applied by
+    :func:`upfirdn`."""
+    x = util.as_tensor(x)
+    up, down = int(up), int(down)
+    if up < 1 or down < 1:
+        raise ValueError("up and down must be >= 1")
+    if cval is not None and padtype != "constant":
+        raise ValueError("cval has no effect when padtype is ", padtype)
+    g_ = math.gcd(up, down)
+    up //= g_
+    down //= g_
+    if up == down == 1:
+        return x.clone()
+    n_in = x.shape[axis]
+    n_out = n_in * up
+    n_out = n_out // down + bool(n_out % down)
+
+    if isinstance(window, (list, np.ndarray, torch.Tensor)):
+        window = (window.cpu().numpy() if isinstance(window, torch.Tensor)
+                  else np.asarray(window))
+        if window.ndim > 1:
+            raise ValueError("window must be 1-D")
+        half_len = (window.size - 1) // 2
+        h = np.array(window, dtype=window.dtype if window.dtype.kind in "fc"
+                     else np.float64)
+    else:
+        from scipy.signal import firwin
+
+        max_rate = max(up, down)
+        half_len = 10 * max_rate
+        h = firwin(2 * half_len + 1, 1.0 / max_rate, window=window)
+        if x.is_floating_point() or x.is_complex():
+            h = h.astype(dtypes.to_numpy(x.real.dtype if x.is_complex()
+                                         else x.dtype))
+    h = h * h.dtype.type(up)
+
+    # zero-pad the filter so that output samples land at the centre
+    n_pre_pad = down - half_len % down
+    n_post_pad = 0
+    n_pre_remove = (half_len + n_pre_pad) // down
+    while (upfirdn_out_len(len(h) + n_pre_pad + n_post_pad, n_in, up, down)
+           < n_out + n_pre_remove):
+        n_post_pad += 1
+    h_full = np.zeros(len(h) + n_pre_pad + n_post_pad, dtype=h.dtype)
+    h_full[n_pre_pad:n_pre_pad + len(h)] = h
+
+    def as_float(v):  # numpy's mean and median of integers: float64
+        return v if v.is_floating_point() or v.is_complex() else v.to(
+            torch.float64)
+
+    funcs = {
+        "mean": lambda v: torch.mean(as_float(v), dim=axis, keepdim=True),
+        "median": lambda v: _median_keepdims(as_float(v), axis),
+        "minimum": lambda v: torch.amin(v, dim=axis, keepdim=True),
+        "maximum": lambda v: torch.amax(v, dim=axis, keepdim=True),
+    }
+    upfirdn_kwargs = {"mode": "constant", "cval": 0}
+    background = None
+    if padtype in funcs:
+        background = funcs[padtype](x)
+    elif padtype in upfirdn_modes:
+        upfirdn_kwargs = {"mode": padtype}
+        if padtype == "constant":
+            upfirdn_kwargs["cval"] = 0 if cval is None else cval
+    else:
+        raise ValueError(
+            "padtype must be one of: maximum, mean, median, minimum, "
+            + ", ".join(upfirdn_modes))
+    xw = x - background if background is not None else x
+    y = upfirdn(h_full, xw, up, down, axis=axis, **upfirdn_kwargs)
+    y = y.narrow(axis, n_pre_remove, n_out)
+    return y + background if background is not None else y
 
 
 # ---------------------------------------------------------------------------

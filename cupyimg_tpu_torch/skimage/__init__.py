@@ -1,3 +1,4 @@
 """scikit-image-compatible layer on torch tensors: so far
 ``skimage.morphology`` (binary and grey operations, the structuring
-elements) and ``skimage.util.crop``."""
+elements, reconstruction, the convex hull and the small-object filters),
+``skimage.measure.label`` and ``skimage.util.crop``."""

@@ -111,11 +111,13 @@ def test_integer_parity_exact(name, args, kwargs, dtype, output):
 
 
 def test_bool_input_follows_cupyimg_tpu_not_scipy():
-    """A recorded departure, not a fault: on a bool mask the correlation
-    filters give True wherever the float result is nonzero, as
-    cupyimg_tpu does; SciPy keeps only outputs that reach 1.  The port
+    """A recorded departure (ROADMAP C), not a fault: on a bool mask the
+    correlation filters give True wherever the float result is nonzero,
+    as cupyimg_tpu does; SciPy keeps only outputs that reach 1.  The port
     follows cupyimg_tpu element for element, and the two differ from
-    SciPy here."""
+    SciPy here: on this 7x9 mask both packages give 63 True for each
+    call, SciPy 1 for uniform_filter(b, 3) and 0 for gaussian_filter(b,
+    1)."""
     import jax
     import scipy.ndimage as sndi
 
@@ -129,6 +131,8 @@ def test_bool_input_follows_cupyimg_tpu_not_scipy():
         assert got.dtype == np.bool_ and int(got.sum()) == 63
         sp = getattr(sndi, name)(b, arg)
         assert sp.dtype == np.bool_ and not np.array_equal(got, sp)
+        assert int(sp.sum()) == {"uniform_filter": 1,
+                                 "gaussian_filter": 0}[name]
 
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])

@@ -295,6 +295,20 @@ def test_bf_euclidean_matches_scipy():
         e, sampling=(1.0, 2.0)), rtol=1e-6)
 
 
+@pytest.mark.parametrize("metric", ["euclidean", "taxicab", "chessboard"])
+def test_bf_dtypes_follow_cupyimg_tpu(metric):
+    """ROADMAP C: ``distance_transform_bf`` returns float32 for the
+    Euclidean metric and int32 for the others, as ``cupyimg_tpu`` does;
+    scipy returns float64 and uint32.  The values agree."""
+    e = np.random.RandomState(5).rand(14, 15) > 0.2
+    got = ndi.distance_transform_bf(torch.from_numpy(e), metric)
+    ref = sndi.distance_transform_bf(e, metric)
+    euclid = metric == "euclidean"
+    assert got.dtype == (torch.float32 if euclid else torch.int32)
+    assert ref.dtype == (np.float64 if euclid else np.uint32)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-6)
+
+
 def test_errors_match_scipy():
     x = torch.from_numpy(X2)
     with pytest.raises(ValueError, match="invalid origin"):
