@@ -75,6 +75,22 @@ Phases, each fatal on failure (a traceback and a non-zero exit):
    labeled_comprehension, remove_small_objects/holes, reconstruction of
    a 2048^2 h-dome (sweeps printed), convex_hull_image and
    skimage.measure.label, each against scipy on the host and timed;
+   then the base path, its counts set to 0 before it (no kernel
+   launched): numpy's histograms (4096^2 into 256 bins, unweighted and
+   with float32 and int32 weights; histogram2d of 2^22 points,
+   histogramdd of 2^20 x 3), gradient (256^3, both edge orders, a
+   spacing array), 1-d convolve/correlate (2^20 x 101; float32 in three
+   modes, int32, uint8 and int16 wrapping as numpy's) and quantile
+   (4100^2, above torch.quantile's 2^24 limit), the five
+   scipy.special functions on 4096^2, stats.entropy, a
+   RegularGridInterpolator on a 256^3 grid at 2^20 points, every
+   img_as_* from uint8, uint16, int16, float32 and bool at 4096^2,
+   invert, random_noise (gaussian, s&p, poisson; 5-sigma statistics),
+   map_array over the 4096^2 label image, view_as_blocks/_windows,
+   ensure_spacing of 2000 points, and map_coordinates (orders 1 and 3)
+   and shift of 4-D data (the plain gather on the card), each against
+   numpy/scipy on the host (the skimage calls against the port's CPU
+   result) and timed;
 5. times from CUDA events (median over up to 100 launches after a
    warm-up), printed as one ``{"cases": ...}`` and one ``{"kernels":
    ...}`` JSON line, with each kernel's bound and a PyTorch yardstick
@@ -218,6 +234,17 @@ def gather_bound(n_in, n_out, orders, coord_ops=0, coord_bytes=0,
                      + w_ops / (PEAK_FP64 if weights_f64 else PEAK_FP32))
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else
                                        "operations")
+
+
+def coef_tol(order, ndim):
+    """1e-5 of the largest spline coefficient inputs in [0, 1) can have:
+    each pole's FIR sums to ((1+|z|)/(1-|z|))^2 in absolute value, per
+    axis (9 for order 3 in 2-D, 56 for order 5)."""
+    from cupyimg_tpu_torch.ops import iir
+
+    g = np.prod([((1 + abs(z)) / (1 - abs(z))) ** 2
+                 for z in iir.get_poles(order)])
+    return 1e-5 * g ** ndim
 
 
 def same(a, b):
@@ -1584,7 +1611,8 @@ def measurements_path(counters, torch, x2):
     exactly; the float64 sums, means, variances, deviations and centres
     of mass within 1e-10 of the largest reference value.  Prints the
     propagation sweeps of label and reconstruction, and times each call
-    (median of 10 after 2 warm-ups).  Returns the calls' rows."""
+    (median of 10 after 2 warm-ups).  Returns the calls' rows and the
+    4096^2 label image."""
     import scipy.ndimage as sndi
     from scipy.spatial import ConvexHull
 
@@ -1782,6 +1810,385 @@ def measurements_path(counters, torch, x2):
               f"vs scipy: {checks[label]}")
     rows[0]["sweeps"], rows[1]["sweeps"] = sweeps2, sweeps3
     rows[19]["sweeps"] = rec_sweeps
+    return rows, lab2c
+
+
+def _spacing_reference(pts, spacing):
+    """ensure_spacing's definition in numpy: a point survives unless an
+    earlier survivor lies within ``spacing`` (Chebyshev distance)."""
+    keep = []
+    for i, q in enumerate(pts):
+        if not keep or np.abs(pts[keep] - q).max(axis=-1).min() >= spacing:
+            keep.append(i)
+    return pts[keep]
+
+
+def base_path(counters, torch, lab2c):
+    """Phase 4, base path: the gap-fillers (``numpy``, ``scipy.special``,
+    ``scipy.stats``, ``scipy.interpolate``), skimage's base
+    (``skimage.util``, ``skimage._shared.coord``) and the interpolation
+    of more than 3 axes, at full size in plain torch on the card (no
+    kernel of the port is on this path: every count must stay 0; the
+    counts are set to 0 just before it and read just after).  Each call
+    is held on the host against numpy/scipy where they have the function
+    (histograms, counts, the quantiles, map_array, the integer
+    convolutions and the nearest interpolation exactly; the rest within
+    the tolerance it prints), the skimage conversions and ``invert``
+    against the port's own CPU result of the same call, exactly, and
+    ``random_noise`` by its statistics (5-sigma bands).  Times each call
+    (median of 10 after 2 warm-ups).  Returns the calls' rows."""
+    import scipy.ndimage as sndi
+    import scipy.special as sps
+    import scipy.stats as spst
+    from numpy.lib.stride_tricks import sliding_window_view
+    from scipy.interpolate import RegularGridInterpolator as SpRGI
+
+    import cupyimg_tpu_torch.numpy as tnp
+    import cupyimg_tpu_torch.scipy.ndimage as ndi
+    import cupyimg_tpu_torch.scipy.special as tsp
+    import cupyimg_tpu_torch.scipy.stats as tst
+    import cupyimg_tpu_torch.skimage.util as tutil
+    from cupyimg_tpu_torch.scipy.interpolate import RegularGridInterpolator
+    from cupyimg_tpu_torch.skimage._shared.coord import ensure_spacing
+
+    rng = np.random.default_rng(11)
+    f64 = np.float64
+
+    def dev(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).cuda()
+
+    img = rng.random((4096, 4096), dtype=np.float32)
+    w32 = rng.random((4096, 4096), dtype=np.float32)
+    wi32 = rng.integers(0, 100, (4096, 4096)).astype(np.int32)
+    xy = rng.standard_normal((2, 1 << 22))
+    s3 = rng.random((1 << 20, 3))
+    vol = rng.random((256, 256, 256), dtype=np.float32)
+    sig = rng.random(1 << 20, dtype=np.float32)
+    taps = rng.standard_normal(101).astype(np.float32)
+    sig_i = rng.integers(0, 1 << 20, 1 << 20).astype(np.int32)
+    taps_i = rng.integers(-(1 << 12), 1 << 12, 101).astype(np.int32)
+    sig_u8 = rng.integers(0, 256, 1 << 20).astype(np.uint8)
+    taps_u8 = rng.integers(0, 256, 101).astype(np.uint8)
+    sig_i16 = rng.integers(-3000, 3000, 1 << 20).astype(np.int16)
+    taps_i16 = rng.integers(-300, 300, 101).astype(np.int16)
+    qimg = rng.random((4100, 4100), dtype=np.float32)  # > 2^24 elements
+    qs = np.array([0.1, 0.5, 0.99])
+    sx = (rng.random((4096, 4096), dtype=np.float32) * 4 - 1)
+    sy = (rng.random((4096, 4096), dtype=np.float32) * 4 - 1)
+    sx[::7, ::5] = 0  # the x = 0 branches
+    pk = rng.random(1 << 20)
+    grid = [np.sort(rng.random(256)) * (k + 1) for k in range(3)]
+    gvals = rng.random((256, 256, 256))
+    lo = np.array([g[0] for g in grid])
+    hi = np.array([g[-1] for g in grid])
+    xi = lo + (hi - lo) * rng.random((1 << 20, 3))
+    spacing = np.sort(rng.random(256)) * 3 + 0.1
+    u16 = rng.integers(0, 65536, (4096, 4096)).astype(np.uint16)
+    i16 = rng.integers(-32768, 32768, (4096, 4096)).astype(np.int16)
+    u8 = rng.integers(0, 256, (4096, 4096)).astype(np.uint8)
+    f32 = rng.random((4096, 4096), dtype=np.float32) * 2 - 1
+    b = rng.random((4096, 4096)) > 0.5
+    half = np.full((4096, 4096), 0.5, np.float32)
+    n_lab = int(lab2c.max())
+    lut_out = rng.random(n_lab + 1).astype(np.float32)
+    pts = rng.integers(0, 4096, (2000, 2)).astype(np.float32)
+    v4 = rng.random((32, 32, 32, 32), dtype=np.float32)
+    c4 = (rng.random((4, 1 << 18)) * 31).astype(np.float32)
+    u64 = rng.integers(0, 1 << 64, 1 << 20, dtype=np.uint64)
+    (imgc_, w32c, wi32c, xyc, s3c, volc, sigc, taps_c, sig_ic, taps_ic,
+     sig_u8c, taps_u8c, sig_i16c, taps_i16c, qimgc, sxc, syc, pkc, gvalsc,
+     xic, spacingc, u16c, i16c, u8c, f32c, bc, halfc, lutc, ptsc, v4c,
+     c4c, u64c) = (dev(a) for a in (
+         img, w32, wi32, xy, s3, vol, sig, taps, sig_i, taps_i, sig_u8,
+         taps_u8, sig_i16, taps_i16, qimg, sx, sy, pk, gvals, xi, spacing,
+         u16, i16, u8, f32, b, half, lut_out, pts, v4, c4, u64))
+    keys_in = torch.arange(1, n_lab + 1, device="cuda", dtype=torch.int32)
+    rgi_lin = RegularGridInterpolator(grid, gvalsc)
+    rgi_near = RegularGridInterpolator(grid, gvalsc, method="nearest")
+    torch.cuda.synchronize()
+
+    def host(v):
+        if isinstance(v, torch.Tensor):
+            return v.cpu().numpy()
+        if isinstance(v, (list, tuple)):
+            return [host(u) for u in v]
+        return v
+
+    def exact(label, got, ref):
+        got, ref = host(got), ref
+        if isinstance(ref, (list, tuple)):
+            for g, r in zip(got, ref):
+                exact(label, g, r)
+            return "exact"
+        check(np.asarray(got).dtype == np.asarray(ref).dtype,
+              f"{label}: dtype {np.asarray(got).dtype}, "
+              f"reference {np.asarray(ref).dtype}")
+        check(np.array_equal(got, ref, equal_nan=True),
+              f"{label}: differs from its reference")
+        return "exact"
+
+    def close(label, got, ref, tol, what="max|ref|"):
+        got = np.asarray(host(got), f64)
+        ref = np.asarray(ref, f64)
+        check(got.shape == ref.shape, f"{label}: shape {got.shape}")
+        fin = np.isfinite(ref)
+        check(np.array_equal(np.isnan(got), np.isnan(ref))
+              and np.array_equal(got[np.isinf(ref)], ref[np.isinf(ref)]),
+              f"{label}: NaN or inf out of place")
+        scale = np.abs(ref[fin]).max() if fin.any() else 1.0
+        err = float(np.abs(got[fin] - ref[fin]).max() / scale) if (
+            fin.any()) else 0.0
+        check(err <= tol, f"{label}: {err:.3e} of {what} (tol {tol:.0e})")
+        return f"{err:.3e} of {what} (tol {tol:.0e})"
+
+    def rel(label, got, ref, tol, floor=1e-300):
+        """Relative error, below ``floor`` absolute (inf and NaN in
+        place)."""
+        got = np.atleast_1d(np.asarray(host(got), f64))
+        ref = np.atleast_1d(np.asarray(ref, f64))
+        check(got.shape == ref.shape, f"{label}: shape {got.shape}")
+        with np.errstate(all="ignore"):
+            err = np.abs(got - ref) / np.maximum(np.abs(ref), floor)
+        err[(got == ref) | (np.isnan(got) & np.isnan(ref))] = 0
+        e = float(err.max())
+        check(e <= tol, f"{label}: {e:.3e} relative (tol {tol:.0e})")
+        return f"{e:.3e} relative (tol {tol:.0e})"
+
+    # the checks: each takes (label, result) and returns its message; a
+    # reference is computed on the host only when its check runs
+    def equals(ref_fn):
+        return lambda label, got: exact(label, got, ref_fn())
+
+    def hist_f32_weights(label, got):
+        h, e = got
+        nh, ne = np.histogram(img, 256, weights=w32)
+        exact(label, e, ne)
+        check(h.dtype == torch.float32, "histogram: float32 weights' dtype")
+        # numpy sums the weights of each 65536-sample block in float64 and
+        # the blocks' float32 partial sums in float32; the port sums in
+        # float64
+        return rel(label, h, nh, 1e-5)
+
+    def hist_int64(ref_fn):
+        """Counts in int64 (numpy: integer weights in their own dtype,
+        histogramdd in float64; ROADMAP C), the edges exactly."""
+        def verify(label, got):
+            ref = ref_fn()
+            exact(label, got[1:], ref[1:])
+            return exact(label, got[0], ref[0].astype(np.int64))
+        return verify
+
+    def gradient_of(*args, **kw):
+        def verify(label, got):
+            ref = np.gradient(vol, *args, **kw)
+            got, ref = ([v] if isinstance(v, np.ndarray | torch.Tensor)
+                        else v for v in (got, ref))
+            return [close(label, g, r, 1e-5) for g, r in zip(got, ref)][0]
+        return verify
+
+    def f32_conv(fn, mode):
+        def verify(label, got):
+            check(got.dtype == torch.float32, f"{label}: dtype")
+            return close(label, got, getattr(np, fn)(sig, taps, mode), 1e-5)
+        return verify
+
+    def special(fn, *args):
+        def verify(label, got):
+            check(got.dtype == torch.float32, f"{label}: dtype")
+            with np.errstate(all="ignore"):
+                ref = fn(*args)
+            # float64 inside, one rounding to float32, as scipy's loops;
+            # kl_div cancels where x is near y, hence the floor
+            return rel(label, got, ref, 1e-6, floor=1e-6)
+        return verify
+
+    def gaussian(label, g):
+        n = img.size
+        check(torch.equal(g, tutil.random_noise(halfc, seed=3)),
+              "random_noise: one seed, two outputs")
+        gm, gv = float(g.double().mean()), float(g.double().var())
+        check(abs(gm - 0.5) < 5 * np.sqrt(0.01 / n)
+              and abs(gv - 0.01) < 5 * 0.01 * np.sqrt(2 / n),
+              f"random_noise gaussian: mean {gm}, variance {gv}")
+        return (f"mean {gm:.6f} var {gv:.6f} within 5 sigma, same seed "
+                f"same output")
+
+    def salt_and_pepper(label, got):
+        n = img.size
+        sp_ = host(got)
+        changed = sp_ != img
+        nc = int(changed.sum())
+        salt = int((changed & (sp_ == 1.0)).sum())
+        check(abs(nc - 0.1 * n) < 5 * np.sqrt(n * 0.09)
+              and abs(salt - nc / 2) < 5 * np.sqrt(nc / 4)
+              and salt + int((changed & (sp_ == 0.0)).sum()) == nc,
+              f"random_noise s&p: {nc} changed, {salt} salt")
+        return f"{nc} flipped, {salt} salt: within 5 sigma"
+
+    def poisson(label, got):
+        po = host(got)
+        x = u8.astype(f64) / 255
+        vals = 2 ** np.ceil(np.log2(len(np.unique(u8))))
+        check(np.array_equal(po * vals, np.round(po * vals)),
+              "random_noise poisson: not multiples of 1 / vals")
+        pm = float(po.mean())
+        check(abs(pm - x.mean()) < 5 * np.sqrt(x.mean() / vals / img.size),
+              f"random_noise poisson: mean {pm}")
+        return f"multiples of 1/{vals:.0f}, mean {pm:.6f} within 5 sigma"
+
+    def mapped(label, got):
+        lab2 = host(lab2c)
+        return exact(label, got, np.where(lab2 > 0, lut_out[lab2], 0)
+                     .astype(np.float32))
+
+    def blocks(label, vb):
+        check(vb.shape == (64, 64, 64, 64)
+              and vb.data_ptr() == imgc_.data_ptr(),
+              "view_as_blocks: not a view of its shape")
+        return exact(label, vb,
+                     img.reshape(64, 64, 64, 64).transpose(0, 2, 1, 3))
+
+    def windows(label, vw):
+        ref = sliding_window_view(img, (7, 7))[::4, ::4]
+        check(vw.shape == ref.shape and vw.data_ptr() == imgc_.data_ptr(),
+              "view_as_windows: not a view of its shape")
+        pick = (slice(None, None, 97), slice(None, None, 89))
+        return exact(label, vw[pick], ref[pick])
+
+    def scipy_4d(ref_fn, tol):
+        def verify(label, got):
+            check(got.is_cuda and got.dtype == torch.float32,
+                  f"{label}: device or dtype")
+            return close(label, got, ref_fn(v4.astype(f64)), tol)
+        return verify
+
+    conversions = [(f, name, xc) for f in (
+        "img_as_float32", "img_as_float64", "img_as_float", "img_as_uint",
+        "img_as_int", "img_as_ubyte", "img_as_bool")
+        for name, xc in (("uint8", u8c), ("uint16", u16c), ("int16", i16c),
+                         ("float32", f32c), ("bool", bc))]
+    # (label, call, check)
+    calls = [
+        ("histogram(4096^2 f32, 256)",
+         lambda: tnp.histogram(imgc_, 256),
+         equals(lambda: np.histogram(img, 256))),
+        ("histogram(4096^2 f32, 256, f32 weights)",
+         lambda: tnp.histogram(imgc_, 256, weights=w32c), hist_f32_weights),
+        ("histogram(4096^2 f32, 256, i32 weights)",
+         lambda: tnp.histogram(imgc_, 256, weights=wi32c),
+         hist_int64(lambda: np.histogram(img, 256, weights=wi32))),
+        ("histogram(2^20 u64 up to 2^64 - 1, 64)",
+         lambda: tnp.histogram(u64c, 64),
+         equals(lambda: np.histogram(u64, 64))),
+        ("histogram2d(2^22 points, 256x256)",
+         lambda: tnp.histogram2d(xyc[0], xyc[1], 256),
+         hist_int64(lambda: np.histogram2d(xy[0], xy[1], 256))),
+        ("histogramdd(2^20 x 3, 32^3)",
+         lambda: tnp.histogramdd(s3c, 32),
+         hist_int64(lambda: np.histogramdd(s3, 32))),
+        ("gradient(256^3 f32, edge_order=1)",
+         lambda: tnp.gradient(volc), gradient_of()),
+        ("gradient(256^3 f32, edge_order=2)",
+         lambda: tnp.gradient(volc, edge_order=2),
+         gradient_of(edge_order=2)),
+        ("gradient(256^3 f32, axis 2 spacing array)",
+         lambda: tnp.gradient(volc, spacingc, axis=2),
+         gradient_of(spacing, axis=2)),
+    ] + [
+        (f"{fn}(2^20 f32, 101, {mode})",
+         (lambda fn=fn, mode=mode: getattr(tnp, fn)(sigc, taps_c, mode)),
+         f32_conv(fn, mode))
+        for fn in ("convolve", "correlate")
+        for mode in ("full", "same", "valid")
+    ] + [
+        ("convolve(2^20 i32, 101 i32, full; wraps)",
+         lambda: tnp.convolve(sig_ic, taps_ic),
+         equals(lambda: np.convolve(sig_i, taps_i))),
+        ("correlate(2^20 u8, 101 u8, same; wraps)",
+         lambda: tnp.correlate(sig_u8c, taps_u8c, "same"),
+         equals(lambda: np.correlate(sig_u8, taps_u8, "same"))),
+        ("convolve(2^20 i16, 101 i16, valid; wraps)",
+         lambda: tnp.convolve(sig_i16c, taps_i16c, "valid"),
+         equals(lambda: np.convolve(sig_i16, taps_i16, "valid"))),
+        ("quantile(4100^2 f32, (0.1, 0.5, 0.99))",
+         lambda: tnp.quantile(qimgc, qs),
+         equals(lambda: np.quantile(qimg, qs))),
+        ("entr(4096^2 f32)", lambda: tsp.entr(sxc), special(sps.entr, sx)),
+        ("kl_div(4096^2 f32)", lambda: tsp.kl_div(sxc, syc),
+         special(sps.kl_div, sx, sy)),
+        ("rel_entr(4096^2 f32)", lambda: tsp.rel_entr(sxc, syc),
+         special(sps.rel_entr, sx, sy)),
+        ("huber(4096^2 f32)", lambda: tsp.huber(syc, sxc),
+         special(sps.huber, sy, sx)),
+        ("pseudo_huber(4096^2 f32)", lambda: tsp.pseudo_huber(syc, sxc),
+         special(sps.pseudo_huber, sy, sx)),
+        ("entropy(2^20 f64)", lambda: tst.entropy(pkc, base=2),
+         lambda label, got: rel(label, got, spst.entropy(pk, base=2),
+                                1e-10)),
+        ("RegularGridInterpolator(256^3, 2^20 points, linear)",
+         lambda: rgi_lin(xic),
+         lambda label, got: close(label, got, SpRGI(grid, gvals)(xi),
+                                  1e-12)),
+        ("RegularGridInterpolator(256^3, 2^20 points, nearest)",
+         lambda: rgi_near(xic),
+         equals(lambda: SpRGI(grid, gvals, method="nearest")(xi))),
+    ] + [
+        # the port's own CPU result of the same call: no skimage on the card
+        (f"{f}(4096^2 {name})",
+         (lambda f=f, xc=xc: getattr(tutil, f)(xc)),
+         equals(lambda f=f, xc=xc: host(getattr(tutil, f)(xc.cpu()))))
+        for f, name, xc in conversions
+    ] + [
+        ("invert(4096^2 u8)", lambda: tutil.invert(u8c),
+         equals(lambda: host(tutil.invert(u8c.cpu())))),
+        ("invert(4096^2 f32)", lambda: tutil.invert(f32c),
+         equals(lambda: host(tutil.invert(f32c.cpu())))),
+        ("random_noise(4096^2 f32 0.5, gaussian)",
+         lambda: tutil.random_noise(halfc, seed=3), gaussian),
+        ("random_noise(4096^2 f32, s&p 0.1)",
+         lambda: tutil.random_noise(imgc_, "s&p", seed=3, amount=0.1),
+         salt_and_pepper),
+        ("random_noise(4096^2 u8, poisson)",
+         lambda: tutil.random_noise(u8c, "poisson", seed=3, clip=False),
+         poisson),
+        ("map_array(4096^2 labels, 1..N)",
+         lambda: tutil.map_array(lab2c, keys_in, lutc[1:]), mapped),
+        ("view_as_blocks(4096^2 f32, 64x64)",
+         lambda: tutil.view_as_blocks(imgc_, (64, 64)), blocks),
+        ("view_as_windows(4096^2 f32, 7x7, step 4)",
+         lambda: tutil.view_as_windows(imgc_, (7, 7), step=4), windows),
+        ("ensure_spacing(2000 points, 30)",
+         lambda: ensure_spacing(ptsc, 30),
+         equals(lambda: _spacing_reference(pts, 30))),
+        ("map_coordinates(32^4 f32, 2^18 points, order=1)",
+         lambda: ndi.map_coordinates(v4c, c4c, order=1),
+         scipy_4d(lambda v: sndi.map_coordinates(v, c4, order=1), 1e-5)),
+        ("map_coordinates(32^4 f32, 2^18 points, order=3)",
+         lambda: ndi.map_coordinates(v4c, c4c, order=3),
+         scipy_4d(lambda v: sndi.map_coordinates(v, c4, order=3),
+                  coef_tol(3, 4))),
+        ("shift(32^4 f32, (0.5, -1.25, 0, 2.5), order=3)",
+         lambda: ndi.shift(v4c, (0.5, -1.25, 0, 2.5)),
+         scipy_4d(lambda v: sndi.shift(v, (0.5, -1.25, 0, 2.5)),
+                  coef_tol(3, 4))),
+    ]
+    for c in counters.values():
+        c.launches = 0
+    results = {label: call() for label, call, _ in calls}
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    check(all(n == 0 for n in launches.values()),
+          f"the base path launched a kernel: {launches}")
+    checks = {label: verify(label, results.pop(label))
+              for label, _, verify in calls}
+    print(f"base path launches: {json.dumps(launches)}")
+    rows = []
+    for label, call, _ in calls:
+        ms = median_ms(call, n=10, n_warmup=2)
+        rows.append({"case": label, "route": "plain torch", "ms": ms,
+                     "check": checks[label]})
+        print(f"base path {label:54s} {ms:10.3f} ms (plain torch) "
+              f"vs reference: {checks[label]}")
     return rows
 
 
@@ -2081,14 +2488,6 @@ def main():
     def prefiltered(poles):
         return {"spline_gather": 1, "fused_separable_correlate": poles}
 
-    def coef_tol(order, ndim):
-        """1e-5 of the largest spline coefficient inputs in [0, 1) can
-        have: each pole's FIR sums to ((1+|z|)/(1-|z|))^2 in absolute
-        value, per axis (9 for order 3 in 2-D, 56 for order 5)."""
-        g = np.prod([((1 + abs(z)) / (1 - abs(z))) ** 2
-                     for z in iir.get_poles(order)])
-        return 1e-5 * g ** ndim
-
     # (label, kernel or {kernel: launches}, call, scipy reference, atol;
     # 0 = exact)
     main_path = [
@@ -2232,7 +2631,10 @@ def main():
     })
     sig_launches, sig_inputs, sig_plain_rows = signal_path(
         all_counters, torch, img, imgc)
-    meas_rows = measurements_path(all_counters, torch, x2)
+    meas_rows, lab2c = measurements_path(all_counters, torch, x2)
+    torch.cuda.empty_cache()
+    base_rows = base_path(all_counters, torch, lab2c)
+    del lab2c
     torch.cuda.empty_cache()
 
     # -- phase 5: times -----------------------------------------------------
@@ -2581,7 +2983,7 @@ def main():
 
     print(json.dumps({"card": card, "cases": list(rows.values()),
                       "plain_torch": plain_rows + sig_plain_rows
-                      + meas_rows,
+                      + meas_rows + base_rows,
                       "end_to_end": [fft_e2e], "conv_methods": conv_methods}))
     stencil = "cupyimg_tpu/ops/pallas_stencil.py"
     kernels = [

@@ -107,3 +107,22 @@ def resolve_output_dtype(output, input_dtype, weights_dtype=None):
             )
         return out_dtype
     return input_dtype if output is None else to_numpy(output)
+
+
+#: the signed type that holds every value of an unsigned one: torch's
+#: uint16/uint32/uint64 have few kernels (no min/max, clamp or division),
+#: so the port computes in these and casts back at the end (uint64 values
+#: of 2^63 and more wrap to negative int64: their bits are kept)
+_WIDE_SIGNED = {torch.uint16: torch.int32, torch.uint32: torch.int64,
+                torch.uint64: torch.int64}
+
+
+def widen_unsigned(x):
+    """``x`` in a signed type holding its values (uint8 and signed types
+    unchanged); uint64 keeps its bits in int64."""
+    wide = _WIDE_SIGNED.get(x.dtype)
+    if wide is None:
+        return x
+    if x.dtype == torch.uint64:
+        return x.view(torch.int64)
+    return x.to(wide)

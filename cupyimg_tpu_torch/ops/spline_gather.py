@@ -14,11 +14,14 @@ The counterpart of the interpolation kernels of ``cupyimg_tpu``:
 - :func:`spline_map`: the coordinates come from a ``(ndim, *out_shape)``
   field of float32 or float64.
 
-Both take 1-D to 3-D float32/float64 data, real or complex (the kernel
+Both take float32/float64 data, real or complex (the kernel
 interpolates the real and imaginary parts in one launch), orders 0-5 and
-the eight ndimage modes.  A CUDA tensor launches the kernel (and counts
-one in the module's ``launches``) or raises; a CPU tensor runs the plain
-version, :func:`ops.interp.gather_general` at the same coordinates.
+the eight ndimage modes.  The applicability gate :func:`supports` decides
+the route: a CUDA tensor of 1 to 3 axes with an output of at most 3
+launches the kernel (and counts one in the module's ``launches``) or
+raises; any other tensor runs the plain version,
+:func:`ops.interp.gather_general` at the same coordinates, on its own
+device (a CUDA tensor of 4 or more axes on the card).
 
 The kernel is a family of template instances, picked on the host by
 :func:`instance`: one per (data type, coordinate type, components, order
@@ -50,6 +53,7 @@ __all__ = [
     "spline_affine_ref",
     "spline_map",
     "spline_map_ref",
+    "supports",
 ]
 
 MAX_DIM = 3
@@ -157,16 +161,21 @@ def affine_coords(matrix, offset, output_shape, coord_dtype, device,
     return coords
 
 
+def supports(x, out_shape):
+    """Whether the kernel serves a call: a CUDA tensor of 1 to
+    ``MAX_DIM`` axes and an output of at most ``MAX_DIM`` axes.  Every
+    other call takes the plain gather on the tensor's device."""
+    return (x.is_cuda and 1 <= x.ndim <= MAX_DIM
+            and len(out_shape) <= MAX_DIM)
+
+
 def _check(x, what):
     if x.dtype not in _REAL:
         raise ValueError(f"{what} takes float32/float64/complex data, got "
                          f"{x.dtype}")
 
 
-def _check_kernel(x, out_shape, what):
-    if not (1 <= x.ndim <= MAX_DIM and len(out_shape) <= MAX_DIM):
-        raise ValueError(f"{what} kernel takes 1-D to {MAX_DIM}-D data and "
-                         f"outputs, got {x.ndim}-D and {len(out_shape)}-D")
+def _check_kernel(x, what):
     if not x.is_contiguous():
         raise ValueError(f"{what} kernel takes a contiguous tensor")
 
@@ -235,7 +244,8 @@ def spline_affine(x, matrix, offset, output_shape, order, mode, cval=0.0,
 
     Parameters
     ----------
-    x : float32/float64/complex tensor; on CUDA 1-D to 3-D, contiguous
+    x : float32/float64/complex tensor; contiguous where the kernel
+        serves it (:func:`supports`)
     matrix : (ndim, ndim) host float64 array; offset : (ndim,)
     order : int or one int per axis, 0..5
     mode : one of the eight ndimage modes
@@ -245,10 +255,10 @@ def spline_affine(x, matrix, offset, output_shape, order, mode, cval=0.0,
     """
     _check(x, "spline_affine")
     orders = _orders(order, x.ndim)
-    if x.device.type == "cpu":
+    if not supports(x, output_shape):
         return spline_affine_ref(x, matrix, offset, output_shape, orders,
                                  mode, cval, coord_dtype, pre)
-    _check_kernel(x, output_shape, "spline_affine")
+    _check_kernel(x, "spline_affine")
     ndim = x.ndim
     src, out, dst, ncomp = _planes(x, output_shape)
     if out.numel() == 0:
@@ -311,14 +321,14 @@ def spline_map(x, coords, order, mode, cval=0.0):
     orders = _orders(order, x.ndim)
     if coords.shape[0] != x.ndim:
         raise ValueError("spline_map: one coordinate plane per input axis")
-    if x.device.type == "cpu":
+    out_shape = tuple(coords.shape[1:])
+    if not supports(x, out_shape):
         return spline_map_ref(x, coords, orders, mode, cval)
     if coords.dtype not in _DTYPE_CODES or not coords.is_contiguous() or (
             coords.device != x.device):
         raise ValueError("spline_map kernel takes a contiguous float32/"
                          "float64 coordinate field on the data's device")
-    out_shape = tuple(coords.shape[1:])
-    _check_kernel(x, out_shape, "spline_map")
+    _check_kernel(x, "spline_map")
     in_dims, out_dims, ords, mode_code, cre, cim = _common(
         x, out_shape, orders, mode, cval)
     src, out, dst, ncomp = _planes(x, out_shape)

@@ -36,8 +36,15 @@ def footprint_pad_width(shape, origins):
 
 
 def _scalar(w):
-    """A numpy tap as a Python number (complex stays complex)."""
-    return complex(w) if np.iscomplexobj(w) else float(w)
+    """A numpy tap as a Python number of its kind: complex, bool and
+    integer taps keep their kind, so that a product with an integer
+    accumulator stays integer (and wraps as numpy's)."""
+    kind = np.asarray(w).dtype.kind
+    if kind == "c":
+        return complex(w)
+    if kind == "b":
+        return bool(w)
+    return int(w) if kind in "iu" else float(w)
 
 
 def correlate_shift_add(x, weights, mode, cval, origins, acc_dtype):
@@ -116,8 +123,9 @@ def correlate_nd(x, weights, mode, cval, origins, acc_dtype):
     accumulation dtype is float32 and whose weights its gate admits
     (``fused_dense.supports_dense``), else :func:`correlate_shift_add`.
 
-    ``acc_dtype`` is float32 only under ``dtype_mode="float"``: under the
-    default ``"ndimage"`` even float32 data accumulates in float64.
+    ``acc_dtype`` is float32 under ``dtype_mode="float"``, and under
+    ``"numpy"`` for float16 and float32 operands: under the default
+    ``"ndimage"`` even float32 data accumulates in float64.
     """
     from cupyimg_tpu_torch.ops import fused_dense
 

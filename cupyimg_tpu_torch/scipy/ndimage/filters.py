@@ -29,7 +29,10 @@ Differences from scipy:
   device.
 - ``generic_filter``/``generic_filter1d`` take a function of torch
   tensors that ``torch.func.vmap`` can map over the windows (lines).
-- ``dtype_mode="numpy"`` is not ported yet.
+- ``dtype_mode="numpy"`` (the ``numpy`` layer's mode): the output dtype
+  is ``np.promote_types(input, weights)``, integers accumulate in their
+  own type and wrap as numpy's, float16 accumulates in float32, and
+  ``output`` raises ValueError.
 """
 
 from __future__ import annotations
@@ -106,6 +109,27 @@ def _cast_output(acc, out_dtype):
     return acc.to(dtypes.to_torch(out_dtype))
 
 
+def _acc_and_out_dtypes(input, weights, output, dtype_mode):
+    """(accumulation, output) numpy dtypes of a correlation.
+    ``dtype_mode="numpy"`` gives numpy's: the promoted type of input and
+    weights for both (integers wrap), float16 accumulating in float32, and
+    no ``output``."""
+    if dtype_mode == "numpy":
+        if output is not None:
+            raise ValueError(
+                "dtype_mode == 'numpy' does not support the output argument"
+            )
+        out_dtype = np.promote_types(dtypes.to_numpy(input.dtype),
+                                     weights.dtype)
+        acc_dtype = (np.dtype(np.float32) if out_dtype == np.float16
+                     else out_dtype)
+        return acc_dtype, out_dtype
+    acc_dtype = dtypes.promote_weights_dtype(input.dtype, weights.dtype,
+                                             dtype_mode)
+    return acc_dtype, dtypes.resolve_output_dtype(output, input.dtype,
+                                                  acc_dtype)
+
+
 def _check_nd_weights(input, weights, origin):
     """Validate the weights' rank and normalize per-axis origins."""
     if weights.ndim != input.ndim:
@@ -121,10 +145,6 @@ def _correlate_or_convolve(
 ):
     """Shared body of :func:`correlate` and :func:`convolve`."""
     dtype_mode = _default_dtype_mode(dtype_mode)
-    if dtype_mode == "numpy":
-        raise NotImplementedError(
-            "dtype_mode='numpy' is not ported to cupyimg_tpu_torch yet"
-        )
     input = util.as_tensor(input)
     weights = _as_weights(weights)
     boundary.check_mode(mode)
@@ -144,10 +164,8 @@ def _correlate_or_convolve(
         ]
     elif weights.dtype.kind == "c":
         weights = weights.conj()  # numpy.correlate conjugates the weights
-    acc_dtype = dtypes.promote_weights_dtype(
-        input.dtype, weights.dtype, dtype_mode
-    )
-    out_dtype = dtypes.resolve_output_dtype(output, input.dtype, acc_dtype)
+    acc_dtype, out_dtype = _acc_and_out_dtypes(input, weights, output,
+                                               dtype_mode)
     if input.numel() == 0:  # scipy shape-preserves empty inputs
         return input.new_zeros(input.shape, dtype=dtypes.to_torch(out_dtype))
     acc = stencil.correlate_nd(input, weights, mode, cval, origins, acc_dtype)
@@ -219,10 +237,6 @@ def _correlate1d(
     """1-d correlate/convolve along an axis; ``crop=False`` gives the
     'full' correlation, ``n + size - 1`` samples along ``axis``."""
     dtype_mode = _default_dtype_mode(dtype_mode)
-    if dtype_mode == "numpy":
-        raise NotImplementedError(
-            "dtype_mode='numpy' is not ported to cupyimg_tpu_torch yet"
-        )
     input = util.as_tensor(input)
     weights = _as_weights(weights)
     if weights.ndim != 1:
@@ -240,10 +254,8 @@ def _correlate1d(
     elif weights.dtype.kind == "c":
         weights = weights.conj()
 
-    acc_dtype = dtypes.promote_weights_dtype(
-        input.dtype, weights.dtype, dtype_mode
-    )
-    out_dtype = dtypes.resolve_output_dtype(output, input.dtype, acc_dtype)
+    acc_dtype, out_dtype = _acc_and_out_dtypes(input, weights, output,
+                                               dtype_mode)
     if not crop:
         acc = _full_correlate1d(input, weights, axis, mode, cval, acc_dtype)
         return _cast_output(acc, out_dtype)

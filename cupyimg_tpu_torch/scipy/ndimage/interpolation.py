@@ -18,7 +18,10 @@ Routing of a CUDA call (every CPU tensor takes the plain paths:
   ``shift`` and ``zoom`` with a diagonal matrix; a volume ``rotate``
   resamples every plane in the same launch (order 0 on the other axes);
 - ``map_coordinates`` and ``geometric_transform``: one launch of its map
-  entry (``ops/spline_gather.spline_map``).
+  entry (``ops/spline_gather.spline_map``);
+- data or an output of more than 3 axes: the plain gather on the card
+  (``ops/spline_gather.supports``), after the recursion where it
+  prefilters.
 
 Differences from scipy:
 

@@ -54,8 +54,10 @@ _LABEL_CHECK = 4
 
 
 def _structure_offsets(structure, ndim):
-    """Nonzero structure offsets relative to the centre (centre
-    excluded)."""
+    """Nonzero offsets of ``structure | flip(structure)`` relative to the
+    centre (centre excluded): connectivity is symmetric, so a structure
+    that is not centrosymmetric labels as its symmetrized self (scipy
+    raises AssertionError for it)."""
     if structure is None:
         structure = generate_binary_structure(ndim, 1)
     if isinstance(structure, torch.Tensor):
@@ -66,8 +68,9 @@ def _structure_offsets(structure, ndim):
     for s in structure.shape:
         if s != 3:
             raise ValueError("structure dimensions must be equal to 3")
+    structure = structure != 0
     offs = []
-    for idx in np.argwhere(structure != 0):
+    for idx in np.argwhere(structure | np.flip(structure)):
         off = tuple(int(i) - 1 for i in idx)
         if any(off):
             offs.append(off)
@@ -237,6 +240,13 @@ def _norm_labels_index(input, labels, index):
         index = index.cpu().numpy()
     scalar = _is_scalar(index)
     index = np.asarray([int(index)] if scalar else index, dtype=np.int64)
+    low = int(index.min()) if index.size else 0
+    if low < 0:
+        # a negative label that the index asks for reduces over its own
+        # pixels, as scipy's: shift labels and index so that the lowest
+        # label asked for is 0 (labels below it stay negative and drop out)
+        labels = labels.to(torch.int64) - low
+        index = index - low
     return x, labels, index, scalar
 
 
@@ -257,7 +267,9 @@ def _num_segments(labels):
 
 def _segments(labels, num_seg):
     """Flat int64 segment ids; a negative label goes to the spare segment
-    ``num_seg`` (one past the end), which every reduction drops."""
+    ``num_seg`` (one past the end), which every reduction drops (an index
+    that asks for negative labels has shifted them to 0 and up first,
+    ``_norm_labels_index``)."""
     seg = labels.reshape(-1).to(torch.int64)
     return torch.where(seg < 0, num_seg, seg)
 

@@ -16,12 +16,14 @@ the TPU, so:
 
 import numpy as np
 import pytest
+import scipy.ndimage as sndi
 import torch
 
 import jax.numpy as jnp
 
 import cupyimg_tpu.scipy.ndimage as jndi
 import cupyimg_tpu_torch.scipy.ndimage as tndi
+from cupyimg_tpu_torch.core import dtypes
 from cupyimg_tpu.scipy.ndimage import filters as jfilters
 from cupyimg_tpu_torch.ops import fused_dense, fused_rank, fused_separable
 from cupyimg_tpu_torch.scipy.ndimage import filters as tfilters
@@ -88,8 +90,6 @@ def test_correlate_convolve_float_parity(name, args, kwargs, dtype):
 def test_correlate_float_dtype_mode_matches_scipy():
     """dtype_mode="float": float32 accumulation (the route that goes to
     the dense kernel on the card), against scipy in float64."""
-    import scipy.ndimage as sndi
-
     x = _input(SHAPE3, np.float32, 1)
     got, exp = _both("correlate", x, W3, mode="reflect", dtype_mode="float")
     tol = 2e-6 * np.abs(W3).sum()
@@ -199,8 +199,6 @@ def test_rank_output_dtype():
 
 
 def test_rank_filters_match_scipy():
-    import scipy.ndimage as sndi
-
     x = _input((30, 41), np.float32, 9)
     np.testing.assert_array_equal(
         tndi.median_filter(torch.from_numpy(x), 5).numpy(),
@@ -273,8 +271,23 @@ def test_error_parity(name, args, kwargs, exc):
 
 
 def test_numpy_dtype_mode_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tndi.correlate(torch.rand(5, 6), np.ones((3, 3)), dtype_mode="numpy")
+    """Named when ``dtype_mode="numpy"`` raised NotImplementedError (the
+    name is kept so that the test stays traceable); the mode is ported
+    now, so this holds its rule against scipy: the output dtype is
+    ``np.promote_types(input, weights)`` (float64 within 1e-12 relative,
+    float32 within 1e-6 of max|ref|) and ``output`` raises ValueError,
+    as ``cupyimg_tpu``'s."""
+    x = _input(SHAPE2, np.float32, 14)
+    for w, rtol in ((np.ones((3, 3)), 1e-12), (W2.astype(np.float32), 0)):
+        got = tndi.correlate(torch.from_numpy(x), w, dtype_mode="numpy")
+        out = np.promote_types(x.dtype, w.dtype)
+        assert got.dtype == dtypes.to_torch(out)
+        ref = sndi.correlate(x.astype(np.float64), w.astype(np.float64))
+        np.testing.assert_allclose(got.numpy(), ref, rtol=rtol,
+                                   atol=0 if rtol else 1e-6 * abs(ref).max())
+    with pytest.raises(ValueError, match="output"):
+        tndi.correlate(torch.from_numpy(x), np.ones((3, 3)),
+                       output=np.float32, dtype_mode="numpy")
 
 
 def test_size_and_footprint_warns_like_the_reference():
@@ -324,8 +337,6 @@ def cuda():
 ])
 def test_cuda_call_launches_its_kernel_once(cuda, name, args, kwargs,
                                             counter, dtype):
-    import scipy.ndimage as sndi
-
     x = _input((40, 70), dtype, 14)
     before = counter.launches
     y = getattr(tndi, name)(torch.from_numpy(x).cuda(), *args, **kwargs)

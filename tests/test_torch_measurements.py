@@ -259,6 +259,54 @@ def test_histogram_matches_scipy(labels, index):
         np.testing.assert_array_equal(got.numpy(), ref)
 
 
+NEG_X = np.random.default_rng(11).standard_normal((9, 11))
+NEG_LAB = np.random.default_rng(12).integers(-2, 3, (9, 11))
+
+
+@pytest.mark.parametrize("index", [[-2, -1, 0, 1, 2], [-1], -2, [2, -1]])
+def test_negative_labels_asked_for_match_scipy(index):
+    """ROADMAP C: a negative label that the index asks for reduces over its
+    own pixels, as scipy's (``cupyimg_tpu`` clips the index to 0); every
+    reduction, on labels in {-2, ..., 2}."""
+    x, lab = torch.from_numpy(NEG_X), torch.from_numpy(NEG_LAB)
+    for name in STATS:
+        got = getattr(ndi, name)(x, lab, index)
+        ref = getattr(sndi, name)(NEG_X, NEG_LAB, index)
+        if name == "extrema":
+            for g, r in zip(got, ref):
+                _agree(g, r)
+        else:
+            _agree(got, ref)
+    got = ndi.histogram(x, -2.0, 2.0, 5, lab, index)
+    ref = sndi.histogram(NEG_X, -2.0, 2.0, 5, NEG_LAB, index)
+    if isinstance(got, list):
+        got, ref = torch.stack(got), np.stack(ref)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    assert float(ndi.sum(x, lab, [-1])[0]) == pytest.approx(
+        NEG_X[NEG_LAB == -1].sum(), rel=1e-12)
+
+
+@pytest.mark.parametrize("s", [
+    [[0, 1, 1], [0, 1, 0], [0, 0, 0]],
+    [[1, 1, 0], [1, 1, 0], [0, 0, 0]],
+    [[0, 0, 0], [1, 1, 0], [0, 0, 1]]])
+def test_label_asymmetric_structure_labels_as_symmetrized(s):
+    """ROADMAP C: a structure that is not centrosymmetric labels as its
+    symmetrized ``s | s[::-1, ::-1]``; scipy 1.17 raises AssertionError,
+    and ``cupyimg_tpu``'s labels depend on the direction of propagation
+    (more components than the symmetrized structure gives)."""
+    s = np.array(s, bool)
+    sym = s | s[::-1, ::-1]
+    for seed in range(3):
+        b = _blobs((16, 16), 21 + seed, size=2)
+        with pytest.raises(AssertionError):
+            sndi.label(b, s)
+        ref, nr = sndi.label(b, sym)
+        got, ng = ndi.label(torch.from_numpy(b), s)
+        np.testing.assert_array_equal(got.numpy(), ref)
+        assert int(ng) == nr
+
+
 def test_find_objects_matches_scipy():
     lab = LAB.astype(np.int32)
     t = torch.from_numpy(lab)

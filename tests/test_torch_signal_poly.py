@@ -126,6 +126,20 @@ def test_upfirdn_errors():
         sig.upfirdn(h, torch.zeros(1), mode="line")
 
 
+def test_upfirdn_one_sample_line_smooth_raise_as_cupyimg_tpu():
+    """ROADMAP C: modes 'line' and 'smooth' on a one-sample signal raise
+    ValueError in the port and in ``cupyimg_tpu`` (scipy 1.17 returns
+    ``[3.]`` for the call below; scipy is not called in mode 'reflect' on
+    one sample, where it dies of SIGFPE)."""
+    for mode in ("line", "smooth"):
+        with pytest.raises(ValueError, match="at least 2 samples"):
+            sig.upfirdn(torch.ones(2, dtype=torch.float64),
+                        torch.tensor([3.0], dtype=torch.float64), 2, 3,
+                        mode=mode)
+        with pytest.raises(ValueError, match="at least 2 samples"):
+            jsig.upfirdn(np.ones(2), np.array([3.0]), 2, 3, mode=mode)
+
+
 # ---------------------------------------------------------------------------
 # resample_poly
 # ---------------------------------------------------------------------------

@@ -26,6 +26,7 @@ import re
 
 import numpy as np
 import pytest
+import scipy.ndimage as ndi_scipy
 import torch
 
 import jax.numpy as jnp
@@ -311,6 +312,32 @@ def test_wrapper_checks_its_input():
     assert sg.launches == before  # CPU: the plain version, no launch
 
 
+def test_gate_sends_more_than_three_axes_to_the_plain_gather():
+    """The applicability gate: the kernel serves CUDA tensors of 1 to 3
+    axes with outputs of at most 3; more axes take the plain gather on the
+    card, and CPU tensors the plain gather always."""
+    from types import SimpleNamespace as T
+
+    assert sg.supports(T(is_cuda=True, ndim=3), (4, 5, 6))
+    assert sg.supports(T(is_cuda=True, ndim=1), (7,))
+    assert sg.supports(T(is_cuda=True, ndim=2), (9,))  # a map's 1-D field
+    assert not sg.supports(T(is_cuda=True, ndim=4), (2, 3, 4, 5))
+    assert not sg.supports(T(is_cuda=True, ndim=3), (2, 3, 4, 5))
+    assert not sg.supports(T(is_cuda=True, ndim=0), ())
+    assert not sg.supports(T(is_cuda=False, ndim=2), (4, 4))
+    # a 4-D call on the CPU: the plain version, against scipy
+    rng = np.random.RandomState(7)
+    x = rng.rand(3, 4, 5, 6)
+    before = sg.launches
+    got = sg.spline_affine(torch.from_numpy(x), np.eye(4), [0.5, -0.25, 1, 0],
+                           x.shape, 1, "nearest")
+    assert sg.launches == before
+    np.testing.assert_allclose(
+        got.numpy(), ndi_scipy.affine_transform(
+            x, np.eye(4), [0.5, -0.25, 1, 0], order=1, mode="nearest"),
+        rtol=0, atol=1e-12)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -363,6 +390,12 @@ def test_cuda_calls_launch_the_kernel_not_the_plain_version(cuda,
                          order=3, mode="reflect")
     assert sg.launches == before + 1
     assert fused_separable.fused_separable_correlate.launches == b1 + 1
+    x3 = torch.rand(6, 7, 8, device="cuda")  # 3-D: still the kernel
+    before = sg.launches
+    tndi.shift(x3, (0.5, 1.5, -0.3), order=1)
+    tndi.map_coordinates(x3, torch.rand(3, 5, 4, 3, device="cuda") * 5,
+                         order=1)
+    assert sg.launches == before + 2
     for call in (lambda: tndi.shift(x, (1.5, -0.3), order=1),
                  lambda: tndi.zoom(x, 1.5, order=0),
                  lambda: tndi.rotate(x, 30, order=1),
@@ -371,3 +404,25 @@ def test_cuda_calls_launch_the_kernel_not_the_plain_version(cuda,
         before = sg.launches
         call()
         assert sg.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_cuda_four_axes_take_the_plain_gather_on_the_card(cuda):
+    import cupyimg_tpu_torch.scipy.ndimage as tndi
+
+    rng = np.random.RandomState(8)
+    x = rng.rand(4, 5, 6, 7)
+    c = rng.rand(4, 3, 5) * 5
+    before = sg.launches
+    for order in (1, 3):
+        got = tndi.map_coordinates(torch.from_numpy(x).cuda(),
+                                   torch.from_numpy(c).cuda(), order=order)
+        assert got.is_cuda
+        np.testing.assert_allclose(
+            got.cpu().numpy(), ndi_scipy.map_coordinates(x, c, order=order),
+            rtol=0, atol=1e-10)
+    got = tndi.shift(torch.from_numpy(x).cuda(), (0.5, -1.25, 0, 2.5))
+    np.testing.assert_allclose(
+        got.cpu().numpy(), ndi_scipy.shift(x, (0.5, -1.25, 0, 2.5)),
+        rtol=0, atol=1e-10)
+    assert sg.launches == before
