@@ -90,7 +90,23 @@ Phases, each fatal on failure (a traceback and a non-zero exit):
    ensure_spacing of 2000 points, and map_coordinates (orders 1 and 3)
    and shift of 4-D data (the plain gather on the card), each against
    numpy/scipy on the host (the skimage calls against the port's CPU
-   result) and timed;
+   result) and timed; then the skimage path, its counts set to 0 before
+   it: regionprops_table of a 2048^2 label image of ~960 blobs with a
+   float32 intensity image (nine properties), perimeter,
+   perimeter_crofton and euler_number of a 4096^2 mask and euler_number
+   of a 256^3 one, moments of order 3 of 4096^2, profile_line across
+   4096^2 five pixels wide at orders 1 and 3 (one spline gather launch
+   each, and one fused separable launch for order 3's prefilter: every
+   other call of the path launches none), block_reduce, rgb2lab,
+   lab2rgb, rgb2hsv, hsv2rgb, rgb2gray and separate_stains of 4096^2x3
+   float32 and deltaE_ciede2000 of two 4096^2 Lab images (with matmul
+   TF32 allowed, so that a product on the tensor cores would fail their
+   checks), label2rgb (overlay and avg), histogram, equalize_hist and
+   rescale_intensity of 4096^2 uint16, equalize_adapthist of 2048^2
+   uint16 and 1024^2 RGB and match_histograms of 2048^2 RGB, each
+   against numpy/scipy or the port's CPU result (of a crop for the
+   pixel-wise colour calls; CLAHE within one grey level of 2^14) and
+   timed;
 5. times from CUDA events (median over up to 100 launches after a
    warm-up), printed as one ``{"cases": ...}`` and one ``{"kernels":
    ...}`` JSON line, with each kernel's bound and a PyTorch yardstick
@@ -2192,6 +2208,384 @@ def base_path(counters, torch, lab2c):
     return rows
 
 
+def _closed_euler(img):
+    """The Euler characteristic of the union of closed unit pixels
+    (voxels): cells of every dimension counted, ``V - E + F (- C)``;
+    skimage's Euler number under 8- (2-D) or 26-connectivity (3-D)."""
+    import itertools
+
+    P = np.pad(img.astype(bool), 1)
+    chi = 0
+    for S in itertools.product((0, 1), repeat=img.ndim):
+        arr = P
+        for ax, vertex_like in enumerate(S):
+            n = arr.shape[ax]
+            lo = np.take(arr, range(0, n - 1), axis=ax)
+            hi = np.take(arr, range(1, n), axis=ax)
+            arr = (lo | hi) if vertex_like else np.take(
+                arr, range(1, n - 1), axis=ax)
+        chi += (-1) ** (img.ndim - sum(S)) * int(arr.sum())
+    return chi
+
+
+def _perimeters_reference(mask):
+    """skimage's perimeter (4-neighbourhood) and Crofton perimeter (4
+    directions) on scipy.ndimage and numpy."""
+    import math
+
+    import scipy.ndimage as sndi
+
+    img = mask.astype(np.uint8)
+    border = img - sndi.binary_erosion(
+        img, np.array([[0, 1, 0], [1, 1, 1], [0, 1, 0]]), border_value=0)
+    codes = sndi.convolve(border.astype(np.int32),
+                          [[10, 2, 10], [2, 1, 2], [10, 2, 10]],
+                          mode="constant")
+    w = np.zeros(50)
+    w[[5, 7, 15, 17, 25, 27]] = 1
+    w[[21, 33]] = math.sqrt(2)
+    w[[13, 23]] = (1 + math.sqrt(2)) / 2
+    per = np.bincount(codes.ravel(), minlength=50) @ w
+    codes = sndi.convolve(np.pad(img.astype(np.int32), 1),
+                          [[0, 0, 0], [0, 1, 4], [0, 2, 8]], mode="constant")
+    pi, sq2 = np.pi, math.sqrt(2)
+    coefs = [0, pi / 4 * (1 + 1 / sq2), pi / (4 * sq2), pi / (2 * sq2), 0,
+             pi / 4 * (1 + 1 / sq2), 0, pi / (4 * sq2), pi / 4, pi / 2,
+             pi / (4 * sq2), pi / (4 * sq2), pi / 4, pi / 2, 0, 0]
+    return per, np.dot(coefs, np.bincount(codes.ravel(), minlength=16))
+
+
+def _profile_reference(img, src, dst, linewidth, order, mode):
+    """skimage's profile_line on numpy and scipy.ndimage.map_coordinates
+    (float64), the mean across the width."""
+    import scipy.ndimage as sndi
+
+    d = np.subtract(dst, src, dtype=float)
+    theta = np.arctan2(d[0], d[1])
+    n = int(np.ceil(np.hypot(*d) + 1))
+    frac = np.linspace(-1, 1, linewidth)
+    rows = np.linspace(src[0], dst[0], n)[:, None] + frac * (
+        (linewidth - 1) * np.cos(theta) / 2)
+    cols = np.linspace(src[1], dst[1], n)[:, None] + frac * (
+        (linewidth - 1) * np.sin(-theta) / 2)
+    out = sndi.map_coordinates(img.astype(np.float64), np.stack([rows, cols]),
+                               order=order, mode=mode, prefilter=order > 1)
+    return out.mean(axis=1)
+
+
+def _match_reference(src, tmpl):
+    """skimage's match_histograms of one channel in numpy."""
+    s = np.sort(src.ravel())
+    q = np.searchsorted(s, src.ravel(), side="right") / src.size
+    t = np.sort(tmpl.ravel()).astype(np.float64)
+    return np.interp(q, np.arange(1, t.size + 1) / t.size, t).reshape(
+        src.shape)
+
+
+def skimage_path(counters, torch):
+    """Phase 4, skimage path: ``skimage.measure`` (regionprops_table, the
+    perimeters and Euler numbers, moments, profile_line, block_reduce),
+    ``skimage.color`` and ``skimage.exposure`` at full size on the card
+    (the counts are set to 0 just before it and read just after).  Only
+    ``profile_line`` reaches a kernel: one spline gather launch per call,
+    and for order 3 one fused separable launch (the prefilter's pole)
+    before it; every other call is plain torch and launches none.  The
+    colour calls run with TF32 allowed for matmuls, so that a float32
+    product on the tensor cores would fail their checks.  Each call is
+    held against numpy/scipy where the transcription is cheap, else
+    against the port's own CPU result of the same call (on a crop for
+    the pixel-wise colour calls); CLAHE within one grey level of 2^14.
+    Times each call (median of 10 after 2 warm-ups; 3 after none for the
+    calls of more than 100 ms).  Returns the calls' rows and the launch
+    counts of the path."""
+    import scipy.ndimage as sndi
+
+    import cupyimg_tpu_torch.skimage.color as tcolor
+    import cupyimg_tpu_torch.skimage.exposure as texp
+    import cupyimg_tpu_torch.skimage.measure as tmeas
+
+    rng = np.random.default_rng(12)
+    f64 = np.float64
+
+    def dev(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).cuda()
+
+    def host(v):
+        return v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+
+    # ~1000 blobs of ~1000 pixels: coarse noise, upsampled, thresholded
+    coarse = rng.random((96, 96), dtype=np.float32)
+    blobs = sndi.zoom(coarse, 2048 / 96, order=3)[:2048, :2048] > 0.72
+    lab2, n_lab = sndi.label(blobs)
+    lab2 = lab2.astype(np.int32)
+    inten = rng.random((2048, 2048), dtype=np.float32)
+    mask = sndi.uniform_filter(rng.random((4096, 4096), dtype=np.float32),
+                               9) > 0.5
+    vol = sndi.uniform_filter(rng.random((256, 256, 256), dtype=np.float32),
+                              5) > 0.5
+    img = rng.random((4096, 4096), dtype=np.float32)
+    rgb = rng.random((4096, 4096, 3), dtype=np.float32)
+    lab_a = rng.random((4096, 4096, 3), dtype=np.float32) * [100, 200, 200] \
+        - [0, 100, 100]
+    lab_b = np.clip(lab_a + rng.standard_normal(lab_a.shape) * 5,
+                    [0, -100, -100], [100, 100, 100])
+    u16 = (rng.random((4096, 4096)) ** 2 * 50000 + 3000).astype(np.uint16)
+    u16_2k = np.ascontiguousarray(u16[:2048, :2048])
+    rgb_1k = (rng.random((1024, 1024, 3)) * 255).astype(np.uint8)
+    rgb_2k = np.ascontiguousarray(rgb[:2048, :2048])
+    tmpl_2k = rng.random((2048, 2048, 3), dtype=np.float32) ** 3
+    (lab2c, intenc, maskc, volc, imgc, rgbc, lab_ac, lab_bc, u16c, u16_2kc,
+     rgb_1kc, rgb_2kc, tmpl_2kc) = (dev(a) for a in (
+         lab2, inten, mask, vol, img, rgb, lab_a.astype(f64),
+         lab_b.astype(f64), u16, u16_2k, rgb_1k, rgb_2k, tmpl_2k))
+    torch.cuda.synchronize()
+    props = ("label", "bbox", "area", "centroid", "eccentricity",
+             "mean_intensity", "perimeter", "solidity", "moments_hu")
+    crop = (slice(1000, 1512), slice(2000, 2512))
+    src, dst = (100.5, 20.0), (3900.0, 4001.25)
+
+    # (label, {kernel: launches}, call, check); a check takes the result
+    calls = []
+
+    def call(label, fn, verify, kernels=None):
+        calls.append((label, kernels or {}, fn, verify))
+
+    def rel(got, ref, tol, what="max|ref|"):
+        got = np.asarray(host(got), f64)
+        ref = np.asarray(ref, f64)
+        check(got.shape == ref.shape, f"shape {got.shape}, want {ref.shape}")
+        check(np.isfinite(got).all(), "non-finite values")
+        scale = float(np.abs(ref).max()) or 1.0
+        err = float(np.abs(got - ref).max()) / scale
+        check(err <= tol, f"{err:.3e} of {what} (tol {tol:.0e})")
+        return f"{err:.3e} of {what} (tol {tol:.0e})"
+
+    def exact(got, ref):
+        got = host(got)
+        check(np.asarray(got).dtype == np.asarray(ref).dtype,
+              f"dtype {np.asarray(got).dtype}, want {np.asarray(ref).dtype}")
+        check(np.array_equal(got, ref), "differs from its reference")
+        return "exact"
+
+    def cpu_crop(fn, *arrays, tol):
+        """The port's CPU result of the same call on a crop."""
+        def verify(got):
+            ref = fn(*(a[crop].cpu() for a in arrays))
+            check(got.dtype == ref.dtype, f"dtype {got.dtype}")
+            return rel(got[crop], ref.numpy(), tol) + " (port CPU, crop)"
+        return verify
+
+    def table(got):
+        index = np.arange(1, n_lab + 1)
+        bbox = sndi.find_objects(lab2)
+        check(np.array_equal(got["label"], index), "labels")
+        for k in range(4):
+            want = [b[k % 2].start if k < 2 else b[k % 2].stop
+                    for b in bbox]
+            check(np.array_equal(got[f"bbox-{k}"], want), "bbox")
+        check(np.array_equal(got["area"], np.bincount(lab2.ravel())[1:]),
+              "area")
+        cen = np.array(sndi.center_of_mass(np.ones_like(lab2), lab2, index))
+        msg = rel(np.stack([got["centroid-0"], got["centroid-1"]], 1), cen,
+                  1e-12)
+        rel(got["mean_intensity"], sndi.mean(inten.astype(f64), lab2,
+                                             index), 1e-5)
+        cpu = tmeas.regionprops(torch.from_numpy(lab2),
+                                torch.from_numpy(inten))[:50]
+        for prop in ("eccentricity", "perimeter", "solidity"):
+            rel(got[prop][:50], [r[prop] for r in cpu], 1e-9)
+        rel(np.stack([got[f"moments_hu-{j}"][:50] for j in range(7)], 1),
+            np.stack([r.moments_hu.numpy() for r in cpu]), 1e-9)
+        return (f"{n_lab} regions; bbox, area exactly, centroid {msg}, "
+                f"mean_intensity 1e-5 vs scipy; eccentricity, perimeter, "
+                f"solidity, moments_hu within 1e-9 of the port's CPU result "
+                f"(50 regions)")
+
+    per_ref = {}
+
+    def perimeters(index):
+        def verify(got):
+            if not per_ref:
+                per_ref["p"] = _perimeters_reference(mask)
+            return rel(got, per_ref["p"][index], 1e-12)
+        return verify
+
+    def euler(ref_img):
+        def verify(got):
+            check(got == _closed_euler(ref_img), "euler_number")
+            return f"exact ({got})"
+        return verify
+
+    def moments(got):
+        r = np.arange(4096, dtype=f64)
+        vr = r[:, None] ** np.arange(4)
+        ref = vr.T @ img.astype(f64) @ vr
+        check(got.dtype == torch.float64, "moments dtype")
+        err = float((np.abs(host(got) - ref) / np.abs(ref)).max())
+        check(err <= 1e-10, f"moments: {err:.3e} relative")
+        return f"{err:.3e} relative (tol 1e-10)"
+
+    def profile(order, tol):
+        def verify(got):
+            check(got.dtype == torch.float32, "profile dtype")
+            return rel(got, _profile_reference(img, src, dst, 5, order,
+                                               "reflect"), tol)
+        return verify
+
+    def blocks(got):
+        ref = img.astype(f64).reshape(1024, 4, 1024, 4).sum(axis=(1, 3))
+        return rel(got, ref, 1e-6)
+
+    def hist(got):
+        h, c = got
+        lo = int(u16.min())
+        exact(h, np.bincount(u16.ravel().astype(np.int64) - lo))
+        check(np.array_equal(host(c), np.arange(lo, int(u16.max()) + 1)),
+              "bin centres")
+        return "exact"
+
+    def equalized(got):
+        h = np.bincount(u16.ravel().astype(np.int64) - int(u16.min()))
+        cdf = np.cumsum(h) / h.sum()
+        centres = np.arange(int(u16.min()), int(u16.max()) + 1, dtype=f64)
+        check(got.dtype == torch.float64, "equalize_hist dtype")
+        return rel(got, np.interp(u16.ravel(), centres, cdf).reshape(
+            u16.shape), 1e-12)
+
+    def rescaled(got):
+        x = u16.astype(f64)
+        ref = ((x - x.min()) / (x.max() - x.min()) * 65535).astype(np.uint16)
+        return exact(got, ref)
+
+    def clahe(x):
+        def verify(got):
+            ref = texp.equalize_adapthist(x.cpu())
+            check(got.dtype == ref.dtype, "CLAHE dtype")
+            err = float((got.cpu() - ref).abs().max())
+            check(err <= 1.5 / 16383,
+                  f"CLAHE: {err:.3e} (tol one level, 1.5 / 16383)")
+            return f"{err:.3e} vs the port's CPU result (one level: " \
+                   f"{1 / 16383:.3e})"
+        return verify
+
+    def matched(got):
+        ref = np.stack([_match_reference(rgb_2k[..., c], tmpl_2k[..., c])
+                        for c in range(3)], -1)
+        return rel(got, ref, 1e-12)
+
+    def label2rgb_avg(got):
+        index = np.arange(0, n_lab + 1)
+        means = np.stack([sndi.mean(rgb_2k[..., c].astype(f64), lab2, index)
+                          for c in range(3)], -1)
+        means[0] = 0
+        return rel(got, means[lab2], 1e-12)
+
+    def label2rgb_overlay(got):
+        ref = tcolor.label2rgb(torch.from_numpy(lab2),
+                               torch.from_numpy(inten), bg_label=0)
+        return rel(got, ref.numpy(), 1e-12) + " (port CPU)"
+
+    call("regionprops_table(2048^2 i32, ~1000 blobs, f32 intensity)",
+         lambda: tmeas.regionprops_table(lab2c, intenc, properties=props),
+         table)
+    call("perimeter(4096^2 bool)", lambda: tmeas.perimeter(maskc),
+         perimeters(0))
+    call("perimeter_crofton(4096^2 bool)",
+         lambda: tmeas.perimeter_crofton(maskc), perimeters(1))
+    call("euler_number(4096^2 bool)", lambda: tmeas.euler_number(maskc),
+         euler(mask))
+    call("euler_number(256^3 bool)", lambda: tmeas.euler_number(volc),
+         euler(vol))
+    call("moments(4096^2 f32, order 3)", lambda: tmeas.moments(imgc, 3),
+         moments)
+    call("profile_line(4096^2 f32, width 5, order 1)",
+         lambda: tmeas.profile_line(imgc, src, dst, linewidth=5, order=1,
+                                    mode="reflect"),
+         profile(1, 1e-5), {"spline_gather": 1})
+    call("profile_line(4096^2 f32, width 5, order 3)",
+         lambda: tmeas.profile_line(imgc, src, dst, linewidth=5, order=3,
+                                    mode="reflect"),
+         profile(3, coef_tol(3, 2)),
+         {"spline_gather": 1, "fused_separable_correlate": 1})
+    call("block_reduce(4096^2 f32, (4, 4))",
+         lambda: tmeas.block_reduce(imgc, (4, 4)), blocks)
+    color_calls = [
+        ("rgb2lab", tcolor.rgb2lab, (rgbc,), 2e-5),
+        ("lab2rgb", tcolor.lab2rgb, (tcolor.rgb2lab(rgbc),), 1e-5),
+        ("rgb2hsv", tcolor.rgb2hsv, (rgbc,), 1e-6),
+        ("hsv2rgb", tcolor.hsv2rgb, (tcolor.rgb2hsv(rgbc),), 1e-6),
+        ("rgb2gray", tcolor.rgb2gray, (rgbc,), 1e-6),
+        ("separate_stains hed", lambda x: tcolor.separate_stains(
+            x, tcolor.hed_from_rgb), (rgbc,), 1e-6),
+    ]
+    for name, fn, args, tol in color_calls:
+        call(f"{name}(4096^2x3 f32, TF32 allowed)",
+             (lambda fn=fn, args=args: fn(*args)),
+             cpu_crop(fn, *args, tol=tol))
+    call("deltaE_ciede2000(4096^2 Lab pairs, f64, TF32 allowed)",
+         lambda: tcolor.deltaE_ciede2000(lab_ac, lab_bc),
+         cpu_crop(tcolor.deltaE_ciede2000, lab_ac, lab_bc, tol=1e-12))
+    call("label2rgb(2048^2 labels, f32 image, overlay)",
+         lambda: tcolor.label2rgb(lab2c, intenc, bg_label=0),
+         label2rgb_overlay)
+    call("label2rgb(2048^2 labels, 2048^2x3 f32, avg)",
+         lambda: tcolor.label2rgb(lab2c, rgb_2kc, kind="avg", bg_label=0),
+         label2rgb_avg)
+    call("histogram(4096^2 u16)", lambda: texp.histogram(u16c), hist)
+    call("equalize_hist(4096^2 u16)", lambda: texp.equalize_hist(u16c),
+         equalized)
+    call("rescale_intensity(4096^2 u16)",
+         lambda: texp.rescale_intensity(u16c), rescaled)
+    call("equalize_adapthist(2048^2 u16)",
+         lambda: texp.equalize_adapthist(u16_2kc), clahe(u16_2kc))
+    call("equalize_adapthist(1024^2x3 u8)",
+         lambda: texp.equalize_adapthist(rgb_1kc), clahe(rgb_1kc))
+    call("match_histograms(2048^2x3 f32)",
+         lambda: texp.match_histograms(rgb_2kc, tmpl_2kc, channel_axis=-1),
+         matched)
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        for c in counters.values():
+            c.launches = 0
+        results, deltas = {}, {}
+        for label, _, fn, _ in calls:
+            before = {k: c.launches for k, c in counters.items()}
+            results[label] = fn()
+            deltas[label] = {k: c.launches - before[k]
+                             for k, c in counters.items()}
+        torch.cuda.synchronize()
+        launches = {k: c.launches for k, c in counters.items()}
+        checks = {}
+        for label, kernels, _, verify in calls:
+            want = {k: kernels.get(k, 0) for k in counters}
+            check(deltas[label] == want,
+                  f"{label} launched {deltas[label]}, not as planned")
+            try:
+                checks[label] = verify(results.pop(label))
+            except RuntimeError as err:
+                raise RuntimeError(f"skimage path {label}: {err}") from err
+        print(f"skimage path launches: {json.dumps(launches)}")
+        rows = []
+        for label, kernels, fn, _ in calls:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            slow = time.perf_counter() - t0 > 0.1
+            ms = median_ms(fn, n=3 if slow else 10, n_warmup=0 if slow
+                           else 2)
+            route = " + ".join(f"{k} x{n}" for k, n in kernels.items()) or (
+                "plain torch")
+            rows.append({"case": label, "route": route, "ms": ms,
+                         "check": checks[label]})
+            print(f"skimage path {label:58s} {ms:10.3f} ms ({route}) "
+                  f"vs reference: {checks[label]}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return rows, launches
+
+
 def fft_bound(numel, n, in_bytes, out_bytes, mul_bytes=0):
     """(bound_ms, bound_by) of one FFT pass over ``numel`` points along
     an axis of ``n``: one read of each operand and one write at
@@ -2636,6 +3030,8 @@ def main():
     base_rows = base_path(all_counters, torch, lab2c)
     del lab2c
     torch.cuda.empty_cache()
+    sk_rows, sk_launches = skimage_path(all_counters, torch)
+    torch.cuda.empty_cache()
 
     # -- phase 5: times -----------------------------------------------------
     F = torch.nn.functional
@@ -2983,7 +3379,7 @@ def main():
 
     print(json.dumps({"card": card, "cases": list(rows.values()),
                       "plain_torch": plain_rows + sig_plain_rows
-                      + meas_rows + base_rows,
+                      + meas_rows + base_rows + sk_rows,
                       "end_to_end": [fft_e2e], "conv_methods": conv_methods}))
     stencil = "cupyimg_tpu/ops/pallas_stencil.py"
     kernels = [
@@ -3085,6 +3481,9 @@ def main():
         if entry["name"] == "fused_dense_correlate":
             entry["launches_signal_path"] = sig_launches[
                 "fused_dense_correlate"]
+        # profile_line runs the gather and B1's prefilter
+        if entry["name"] in ("spline_gather", "fused_separable_correlate"):
+            entry["launches_skimage_path"] = sk_launches[entry["name"]]
     line[-1]["entries"] = [
         {k: rows[lb][k] for k in ("case", "ms", "kernel_ms", "plain_ms",
                                   "bound_ms", "bound_by", "library_ms",

@@ -699,8 +699,10 @@ def find_objects(input, max_label=0):
     """The bounding slices of labeled objects (scipy.ndimage.find_objects):
     a list over labels ``1..max_label`` of slice tuples (``None`` for an
     absent label).  The boxes are reduced on the device; only the
-    (max_label, 2 * ndim) table comes to the host."""
-    x = util.as_tensor(input)
+    (max_label, 2 * ndim) table comes to the host.  Unsigned labels are
+    read in the signed type that holds them (torch has no max of
+    uint16/32)."""
+    x = dtypes.widen_unsigned(util.as_tensor(input))
     if x.ndim == 0:
         # scipy: a nonzero scalar is one object with an empty slice tuple
         v = int(x)

@@ -1,7 +1,11 @@
 """scikit-image-compatible layer on torch tensors: ``skimage.util`` (the
 dtype conversions, views, ``invert``, ``random_noise``, ``map_array``,
-``crop``), ``skimage.morphology``, ``skimage.measure.label`` and the
-shared helpers of ``skimage._shared``.  The ``img_as_*`` conversions and
+``crop``), ``skimage.morphology``, ``skimage.measure`` (``label``,
+``regionprops``, the moments, perimeters, ``profile_line``, polygons,
+``block_reduce``), ``skimage.color`` (the colour spaces, stains,
+``label2rgb``, ``deltaE_*``), ``skimage.exposure`` (histograms, their
+equalization and matching, the intensity corrections) and the shared
+helpers of ``skimage._shared``.  The ``img_as_*`` conversions and
 ``dtype_limits`` are re-exported here, as skimage does."""
 
 from .util.dtype import (  # noqa: F401,E402

@@ -321,6 +321,16 @@ def test_find_objects_matches_scipy():
         np.asarray(2))
 
 
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.uint32])
+def test_find_objects_of_unsigned_labels_matches_scipy(dtype):
+    """uint16 and uint32 labels raised (torch has no max of them) until
+    find_objects widened them; regionprops of such labels reaches it."""
+    lab = LAB.astype(dtype)
+    assert ndi.find_objects(torch.from_numpy(lab)) == sndi.find_objects(lab)
+    assert ndi.find_objects(torch.from_numpy(lab), 3) == sndi.find_objects(
+        lab, 3)
+
+
 def test_value_indices_matches_scipy():
     for kw in ({}, {"ignore_value": 0}):
         got = ndi.value_indices(torch.from_numpy(LAB), **kw)
