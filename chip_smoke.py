@@ -106,7 +106,21 @@ Phases, each fatal on failure (a traceback and a non-zero exit):
    uint16 and 1024^2 RGB and match_histograms of 2048^2 RGB, each
    against numpy/scipy or the port's CPU result (of a crop for the
    pixel-wise colour calls; CLAHE within one grey level of 2^14) and
-   timed;
+   timed; then the transform path, its counts set to 0 before it, with
+   matmul TF32 allowed: resize (4096^2 -> 2048^2 anti-aliased, 2048^2 ->
+   4096^2 at order 3), rescale of 4096^2x3, rotate (orders 1 and 3,
+   resized), warp by an affine, a projective and a piecewise affine
+   (1024^2) transform, swirl, warp_polar, the gaussian and laplacian
+   pyramids (5 levels), integral_image, integrate (10^5 windows),
+   downscale_local_mean, corner_harris, corner_shi_tomasi, corner_peaks,
+   hessian_matrix_det, shape_index, hessian_matrix and its eigenvalues
+   (256^3), peak_local_max (plain and over 16 labels), match_template
+   (31x31), daisy (2048^2), structural_similarity, the three simple
+   metrics and estimate_transform on 1000 point pairs; each call's
+   launches of B1 (correlation, min/max), the gather and the FFT
+   kernel held to its plan, each result against scipy/numpy (the warps
+   on output windows) or the port's CPU result (the peak finders,
+   exactly), each timed;
 5. times from CUDA events (median over up to 100 launches after a
    warm-up), printed as one ``{"cases": ...}`` and one ``{"kernels":
    ...}`` JSON line, with each kernel's bound and a PyTorch yardstick
@@ -2586,6 +2600,700 @@ def skimage_path(counters, torch):
     return rows, launches
 
 
+def _clip_to(ref, x, mode, cval):
+    """skimage's clip of a warp's output to the input's range (and
+    ``cval`` in mode 'constant')."""
+    lo, hi = float(x.min()), float(x.max())
+    if mode == "constant":
+        lo, hi = min(lo, cval), max(hi, cval)
+    return np.clip(ref, lo, hi)
+
+
+def _daisy_reference(img, step, radius, rings, histograms, orientations,
+                     normalization="l1"):
+    """DAISY in float64 numpy/scipy: orientation maps of the forward
+    differences, a scipy gaussian per ring, windows at the rings' sample
+    points, normalized (skimage's 'l1', 'l2', 'daisy' or 'off').  The
+    port's CPU tests hold ``daisy`` against it too."""
+    import math
+
+    import scipy.ndimage as sndi
+
+    dx = np.pad(np.diff(img, axis=1), ((0, 0), (0, 1)))
+    dy = np.pad(np.diff(img, axis=0), ((0, 1), (0, 0)))
+    mag, ori = np.hypot(dx, dy), np.arctan2(dy, dx)
+    maps = [np.exp(orientations / np.pi * np.cos(
+        ori - (2 * o * np.pi / orientations - np.pi))) * mag
+        for o in range(orientations)]
+    sigmas = [radius * (i + 1) / (2 * rings) for i in range(rings)]
+    radii = [radius * (i + 1) / rings for i in range(rings)]
+    sigmas = [sigmas[0]] + sigmas
+    rows, cols = img.shape[0] - 2 * radius, img.shape[1] - 2 * radius
+    blocks = []
+    for ring in range(rings + 1):
+        sm = [sndi.gaussian_filter(m, sigmas[ring]) for m in maps]
+        offsets = [(0, 0)] if ring == 0 else [
+            (int(round(radii[ring - 1] * math.sin(2 * np.pi * j
+                                                   / histograms))),
+             int(round(radii[ring - 1] * math.cos(2 * np.pi * j
+                                                   / histograms))))
+            for j in range(histograms)]
+        for oy, ox in offsets:
+            for s in sm:
+                blocks.append(s[radius + oy:radius + oy + rows:step,
+                                radius + ox:radius + ox + cols:step])
+    d = np.stack(blocks, -1)
+    if normalization == "off":
+        return d
+    d = d + 1e-10
+    if normalization == "l1":
+        return d / d.sum(-1, keepdims=True)
+    if normalization == "l2":
+        return d / np.sqrt((d * d).sum(-1, keepdims=True))
+    parts = np.split(d, d.shape[-1] // orientations, axis=-1)
+    return np.concatenate([p / np.sqrt((p * p).sum(-1, keepdims=True))
+                           for p in parts], -1)
+
+
+def transform_path(counters, torch):
+    """Phase 4, transform/feature path: ``skimage.transform``,
+    ``skimage.feature`` (all but canny) and ``skimage.metrics`` at full
+    size (4096^2 float32 images, 4096^2x3 RGB, a 256^3 volume for the
+    Hessian, 2048^2 for daisy, 1024^2 for the piecewise affine warp), the
+    counts set to 0 just before it and read just after.  The
+    float32 calls run on the kernels: B1's correlation (the anti-aliasing
+    and pyramid gaussians, sobels, the structure tensor, the Hessian,
+    daisy, the order-3 prefilters), B1 min/max (peak_local_max), the
+    spline gather's affine entry (affine warps, rotate, resize, rescale
+    and the pyramids through zoom) and map entry (projective and callable
+    warps, swirl, warp_polar, the piecewise affine warp) and the FFT
+    kernel (match_template); each call's launches must be as planned.
+    Matmul TF32 is allowed over the path, so that a float32 product on
+    the tensor cores would fail a check.  Each call is held against
+    scipy/numpy on the host (the warps on output windows, from the
+    transform's float64 params: 1e-5 of max|ref| for order 1,
+    ``coef_tol`` for order 3), or against the port's CPU result of the
+    same call on the same input (the peak finders, exactly).  Times each
+    call (median of 10 after 2 warm-ups; 3 after none for calls of more
+    than 100 ms).  Returns the calls' rows and the path's launches."""
+    import scipy.ndimage as sndi
+
+    import cupyimg_tpu_torch.skimage.feature as tfeat
+    import cupyimg_tpu_torch.skimage.metrics as tmet
+    import cupyimg_tpu_torch.skimage.transform as ttr
+
+    rng = np.random.default_rng(13)
+    f64 = np.float64
+    n, n2, nv, npw, w = 4096, 2048, 256, 1024, 256
+    sync = torch.cuda.synchronize
+
+    def dev(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).cuda()
+
+    def host(v):
+        return v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+
+    img = rng.random((n, n), dtype=np.float32)
+    img2 = rng.random((n2, n2), dtype=np.float32)
+    rgb = rng.random((n, n, 3), dtype=np.float32)
+    noisy = np.clip(img + 0.1 * rng.standard_normal((n, n)), 0, 1).astype(
+        np.float32)
+    smooth = sndi.gaussian_filter(rng.random((n, n), dtype=np.float32), 12,
+                                  truncate=2.5)
+    smooth = (smooth - smooth.min()) / (smooth.max() - smooth.min())
+    vol = sndi.gaussian_filter(rng.random((nv, nv, nv), dtype=np.float32),
+                               2)
+    u8 = (rng.random((n, n)) * 256).astype(np.uint8)
+    blocks = (np.arange(n)[:, None] * 4 // n * 4
+              + np.arange(n)[None, :] * 4 // n + 1).astype(np.int32)
+    tmpl = img[1000:1031, 2000:2031].copy()
+    starts = rng.integers(0, n - 64, (100000, 2))
+    ends = starts + rng.integers(0, 64, (100000, 2))
+    src = rng.random((1000, 2)) * n
+    sim = ttr.SimilarityTransform(scale=1.3, rotation=0.4,
+                                  translation=(20.0, -30.0))
+    proj_true = np.array([[1.1, 0.05, 12.0], [-0.03, 0.95, -7.0],
+                          [2e-5, -1e-5, 1.0]])
+    dst_sim = host(sim(torch.from_numpy(src)))
+    dst_proj = host(ttr.ProjectiveTransform(proj_true)(
+        torch.from_numpy(src)))
+    grid = np.stack(np.meshgrid(np.linspace(0, npw - 1, 9),
+                                np.linspace(0, npw - 1, 9)), -1).reshape(
+        -1, 2)
+    pw = ttr.PiecewiseAffineTransform()
+    pw.estimate(grid, grid + rng.standard_normal(grid.shape) * npw / 200)
+    (imgc, img2c, rgbc, noisyc, smoothc, volc, u8c, blocksc, tmplc,
+     pwc) = (dev(a) for a in (img, img2, rgb, noisy, smooth, vol, u8, blocks,
+                              tmpl, img[:npw, :npw]))
+    sync()
+
+    aff = ttr.AffineTransform(scale=(1.05, 0.9), rotation=0.3, shear=0.1,
+                              translation=(-150.0, 80.0))
+    proj = ttr.ProjectiveTransform(np.array([[1.02, 0.08, -40.0],
+                                             [-0.05, 0.97, 60.0],
+                                             [2e-5, -3e-5, 1.0]]))
+    swirl_kw = dict(strength=4, radius=n / 3)
+    # output windows: one inside, one at the corner (the boundary modes)
+    wins = [(n // 2 - w, n // 3), (0, 0)]
+    x64, x2_64 = img.astype(f64), img2.astype(f64)
+    coefs = {}
+
+    def spline(x, order, mode):
+        key = (id(x), order, mode)
+        if key not in coefs:
+            coefs[key] = sndi.spline_filter(x, order, mode=mode)
+        return coefs[key]
+
+    def sample(x, rows, cols, order, mode, cval=0.0):
+        """scipy's map_coordinates at float64 (row, col) points of x."""
+        c = x if order < 2 else spline(x, order, mode)
+        return sndi.map_coordinates(c, np.stack([rows, cols]), order=order,
+                                    mode=mode, cval=cval, prefilter=False)
+
+    def window(r0, c0, shape, size=w):
+        rr = np.arange(r0, min(r0 + size, shape[0]), dtype=f64)
+        cc = np.arange(c0, min(c0 + size, shape[1]), dtype=f64)
+        return np.meshgrid(rr, cc, indexing="ij")
+
+    def rel(got, ref, tol, what="max|ref|"):
+        got = np.asarray(host(got), f64)
+        ref = np.asarray(ref, f64)
+        check(got.shape == ref.shape, f"shape {got.shape}, want {ref.shape}")
+        check(np.isfinite(got).all(), "non-finite values")
+        scale = float(np.abs(ref).max()) or 1.0
+        err = float(np.abs(got - ref).max()) / scale
+        check(err <= tol, f"{err:.3e} of {what} (tol {tol:.0e})")
+        return f"{err:.3e} of {what} (tol {tol:.0e})"
+
+    def exact(got, ref):
+        got = host(got)
+        check(np.asarray(got).dtype == np.asarray(ref).dtype,
+              f"dtype {np.asarray(got).dtype}, want {np.asarray(ref).dtype}")
+        check(np.array_equal(got, ref), "differs from its reference")
+        return "exact"
+
+    def f32(got):
+        check(got.dtype == torch.float32, f"dtype {got.dtype}, not float32")
+
+    def warped(x, params, order, mode, cval=0.0, tol=1e-5, mapping=None):
+        """A warp of x against map_coordinates at its params' (or
+        ``mapping``'s) source points on the output windows, clipped."""
+        def verify(got):
+            f32(got)
+            msgs = []
+            for r0, c0 in wins:
+                rr, cc = window(r0, c0, got.shape)
+                if mapping is not None:
+                    sx, sy = mapping(cc, rr)
+                else:
+                    M = params
+                    wgt = M[2, 0] * cc + M[2, 1] * rr + M[2, 2]
+                    sx = (M[0, 0] * cc + M[0, 1] * rr + M[0, 2]) / wgt
+                    sy = (M[1, 0] * cc + M[1, 1] * rr + M[1, 2]) / wgt
+                ref = _clip_to(sample(x, sy, sx, order, mode, cval), x, mode,
+                               cval)
+                sl = (slice(r0, r0 + w), slice(c0, c0 + w))
+                msgs.append(rel(got[sl], ref, tol))
+            return "; ".join(msgs) + " (output windows vs map_coordinates)"
+        return verify
+
+    def zoomed(x, factors, order, sigma=None):
+        """resize: scipy's gaussian (mode mirror) if ``sigma``, then
+        zoom(grid_mode=True) as map_coordinates at (o + 0.5) * f - 0.5,
+        on the output windows."""
+        def verify(got):
+            f32(got)
+            y = x if sigma is None else sndi.gaussian_filter(x, sigma,
+                                                             mode="mirror")
+            msgs = []
+            for r0, c0 in wins:
+                rr, cc = window(r0, c0, got.shape)
+                sr = (rr + 0.5) * factors[0] - 0.5
+                sc = (cc + 0.5) * factors[1] - 0.5
+                if y.ndim == 3:
+                    ref = np.stack([sample(y[..., k], sr, sc, order,
+                                           "mirror")
+                                    for k in range(y.shape[2])], -1)
+                else:
+                    ref = sample(y, sr, sc, order, "mirror")
+                sl = (slice(r0, r0 + w), slice(c0, c0 + w))
+                msgs.append(rel(got[sl], _clip_to(ref, y, "mirror", 0.0),
+                                1e-5 if order < 2 else coef_tol(order, 2)))
+            return "; ".join(msgs) + " (windows vs gaussian + zoom)"
+        return verify
+
+    def rotated(order, resize):
+        a = np.deg2rad(30.0)
+        rows = cols = n
+        center = np.array([(rows - 1) / 2, (cols - 1) / 2])
+        m = np.array([[np.cos(a), np.sin(a)], [-np.sin(a), np.cos(a)]])
+        out_center = center
+        if resize:
+            corners = np.array([[0, 0], [0, cols - 1], [rows - 1, cols - 1],
+                                [rows - 1, 0]], f64) - center
+            rot = corners @ np.linalg.inv(m).T
+            out_center = -rot.min(0)
+        offset = center - m @ out_center
+
+        def mapping(cc, rr):
+            return (m[1, 0] * rr + m[1, 1] * cc + offset[1],
+                    m[0, 0] * rr + m[0, 1] * cc + offset[0])
+        return warped(x64, None, order, "constant", mapping=mapping,
+                      tol=1e-5 if order < 2 else coef_tol(order, 2))
+
+    def swirled(got):
+        x0, y0 = n / 2, n / 2
+        radius = swirl_kw["radius"] / 5 * np.log(2)
+
+        def mapping(cc, rr):
+            rho = np.hypot(cc - x0, rr - y0)
+            theta = swirl_kw["strength"] * np.exp(-rho / radius) + \
+                np.arctan2(rr - y0, cc - x0)
+            return x0 + rho * np.cos(theta), y0 + rho * np.sin(theta)
+        return warped(x64, None, 1, "mirror", mapping=mapping)(got)
+
+    def polar(got):
+        f32(got)
+        radius = np.sqrt(2 * (n / 2) ** 2)
+        height, width = 360, int(np.ceil(radius))
+        rr, cc = np.mgrid[0:height, 0:width].astype(f64)
+        ang = rr / (height / (2 * np.pi))
+        rad = cc / (width / radius)
+        c0 = n / 2 - 0.5
+        ref = sample(x64, rad * np.sin(ang) + c0, rad * np.cos(ang) + c0, 1,
+                     "constant")
+        return rel(got, _clip_to(ref, x64, "constant", 0.0), 1e-5)
+
+    def pyramid(kind):
+        def verify(levels):
+            msgs = []
+            prev = x64
+            for k, lv in enumerate(levels):
+                f32(lv)
+                if kind == "gaussian":
+                    if k == 0:
+                        ref = prev
+                    else:
+                        y = sndi.gaussian_filter(prev, 2 / 3, mode="mirror")
+                        shape = tuple(-(-s // 2) for s in prev.shape)
+                        ref = sndi.zoom(y, np.divide(shape, prev.shape),
+                                        order=1, mode="mirror",
+                                        grid_mode=True)
+                        ref = _clip_to(ref, y, "mirror", 0.0)
+                    # the next level from the card's own level
+                    prev = host(lv).astype(f64)
+                    msgs.append(rel(lv, ref, 1e-5))
+            return f"{len(levels)} levels: " + "; ".join(msgs[1:])
+        return verify
+
+    def laplacian(levels):
+        # float64 on the host: smooth, layer = resized - smooth(resized)
+        smooth_ = sndi.gaussian_filter(x64, 2 / 3, mode="mirror")
+        refs = [x64 - smooth_]
+        cur = smooth_
+        for _ in range(len(levels) - 1):
+            shape = tuple(-(-s // 2) for s in cur.shape)
+            resized = _clip_to(sndi.zoom(cur, np.divide(shape, cur.shape),
+                                         order=1, mode="mirror",
+                                         grid_mode=True), cur, "mirror", 0.0)
+            cur = sndi.gaussian_filter(resized, 2 / 3, mode="mirror")
+            refs.append(resized - cur)
+        msgs = []
+        for lv, ref in zip(levels, refs):
+            f32(lv)
+            err = float(np.abs(host(lv) - ref).max())
+            check(err <= 1e-5, f"laplacian level: {err:.3e} (tol 1e-5 of "
+                               f"the image's range, 1)")
+            msgs.append(f"{err:.1e}")
+        return f"{len(levels)} levels within {max(msgs)} of the image's " \
+               f"range (tol 1e-5)"
+
+    def integral(got):
+        return exact(got, u8.astype(np.int64).cumsum(0).cumsum(1))
+
+    ii_host = u8.astype(np.int64).cumsum(0).cumsum(1)
+    iic = dev(ii_host)
+
+    def integrated(got):
+        want = np.array([u8[a:c + 1, b:d + 1].sum() for (a, b), (c, d) in
+                         zip(starts[:2000], ends[:2000])])
+        check(got.dtype == torch.int64, "integrate dtype")
+        gh = host(got)
+        check(np.array_equal(gh[:2000], want), "integrate vs direct sums")
+        pad = np.pad(ii_host, ((1, 0), (1, 0)))
+        a, b = starts[:, 0], starts[:, 1]
+        c, d = ends[:, 0] + 1, ends[:, 1] + 1
+        check(np.array_equal(gh, pad[c, d] - pad[a, d] - pad[c, b]
+                             + pad[a, b]), "integrate vs numpy corners")
+        return "exact (2000 windows by direct sums, all by numpy corners)"
+
+    def local_mean(got):
+        f32(got)
+        return rel(got, x64.reshape(n // 4, 4, n // 4, 4).mean(axis=(1, 3)),
+                   1e-6)
+
+    def structure(x, margin=16):
+        """scipy's sobel derivatives and gaussian products on a window
+        with a margin (the image's edge in mode constant at the corner
+        window)."""
+        out = []
+        for r0, c0 in wins:
+            lo_r, lo_c = max(0, r0 - margin), max(0, c0 - margin)
+            sub = x[lo_r:r0 + w + margin, lo_c:c0 + w + margin].astype(f64)
+            d = [sndi.sobel(sub, axis=i, mode="constant") for i in (0, 1)]
+            A = [sndi.gaussian_filter(p * q, 1, mode="constant")
+                 for p, q in ((d[0], d[0]), (d[0], d[1]), (d[1], d[1]))]
+            out.append(((r0, c0), [a[r0 - lo_r:r0 - lo_r + w,
+                                     c0 - lo_c:c0 - lo_c + w] for a in A]))
+        return out
+
+    def corner(kind):
+        def verify(got):
+            f32(got)
+            msgs = []
+            for (r0, c0), (arr, arc, acc) in structure(img):
+                if kind == "harris":
+                    ref = arr * acc - arc ** 2 - 0.05 * (arr + acc) ** 2
+                else:
+                    ref = (arr + acc - np.sqrt((arr - acc) ** 2
+                                               + 4 * arc ** 2)) / 2
+                msgs.append(rel(got[r0:r0 + w, c0:c0 + w], ref, 1e-5))
+            return "; ".join(msgs) + " (windows vs scipy sobel/gaussian)"
+        return verify
+
+    harris_smooth = tfeat.corner_harris(smoothc)
+    sync()
+
+    def same_as_cpu(fn, *args):
+        """The port's CPU result of the same call on the same input:
+        the same coordinates in the same order."""
+        def verify(got):
+            ref = fn(*(a.cpu() for a in args))
+            check(got.dtype == torch.int64, "coordinates dtype")
+            check(torch.equal(got.cpu(), ref), f"{got.shape[0]} peaks vs "
+                  f"{ref.shape[0]} of the port's CPU result")
+            pts = host(got)
+            vals = host(args[0])[tuple(pts.T)]
+            # by label (when labels are given), then by intensity
+            lab = (host(args[1])[tuple(pts.T)] if len(args) > 1
+                   else np.zeros(len(pts)))
+            check(np.all(np.diff(lab) >= 0), "peaks not by label")
+            same_lab = np.diff(lab) == 0
+            check(np.all(np.diff(vals)[same_lab] <= 0),
+                  "peaks not by intensity")
+            return f"{got.shape[0]} peaks, exactly as the port's CPU " \
+                   f"result"
+        return verify
+
+    def hessian_det(got):
+        check(got.dtype == torch.float64, "hessian_matrix_det dtype")
+        msgs = []
+        for r0, c0 in wins:
+            lo_r, lo_c = max(0, r0 - 16), max(0, c0 - 16)
+            sub = img[lo_r:r0 + w + 16, lo_c:c0 + w + 16]
+            ref = host(tfeat.hessian_matrix_det(torch.from_numpy(sub)))
+            msgs.append(rel(got[r0:r0 + w, c0:c0 + w],
+                            ref[r0 - lo_r:r0 - lo_r + w,
+                                c0 - lo_c:c0 - lo_c + w], 1e-7))
+        return "; ".join(msgs) + " (windows vs the port's CPU result)"
+
+    def hessian_of(x, margin=12):
+        """scipy's gaussian and numpy's gradient on a window with a
+        margin, 'rc' order (the last axis first)."""
+        g = np.gradient(sndi.gaussian_filter(x.astype(f64), 1,
+                                             mode="constant"))
+        axes = list(range(x.ndim))[::-1]
+        return [np.gradient(g[a], axis=b) for a, b in
+                [(axes[i], axes[j]) for i in range(x.ndim)
+                 for j in range(i, x.ndim)]]
+
+    def shape_idx(got):
+        f32(got)
+        r0, c0 = wins[0]
+        sub = img[r0 - 16:r0 + w + 16, c0 - 16:c0 + w + 16]
+        hrr, hrc, hcc = (h[16:16 + w, 16:16 + w] for h in hessian_of(sub))
+        tr, dt = (hrr + hcc) / 2, np.sqrt(((hrr - hcc) / 2) ** 2 + hrc ** 2)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            ref = 2 / np.pi * np.arctan(((tr - dt) + (tr + dt))
+                                        / ((tr - dt) - (tr + dt)))
+        err = np.abs(host(got)[r0:r0 + w, c0:c0 + w] - ref)
+        err = err[np.isfinite(ref)]
+        med, p999 = float(np.median(err)), float(np.quantile(err, 0.999))
+        check(np.isfinite(host(got)).sum() >= got.numel() - 16,
+              "shape_index: non-finite values")
+        check(med <= 1e-5 and p999 <= 1e-2, f"shape_index: median "
+              f"{med:.2e}, 99.9th percentile {p999:.2e}")
+        return f"median {med:.2e} (tol 1e-5), 99.9th percentile " \
+               f"{p999:.2e} (tol 1e-2: arctan of an eigenvalue ratio, " \
+               f"ill-conditioned where the eigenvalues meet)"
+
+    def hessian3d(got):
+        elems, eig = got
+        for e in elems:
+            f32(e)
+        msgs = []
+        sl = tuple(slice(nv // 2 - 8, nv // 2 + 8) for _ in range(3))
+        sub_sl = tuple(slice(s.start - 8, s.stop + 8) for s in sl)
+        refs = hessian_of(vol[sub_sl])
+        inner = tuple(slice(8, 24) for _ in range(3))
+        vmax = float(np.abs(vol).max())
+        errs = []
+        for e, r in zip(elems, refs):
+            # second differences of a float32 gaussian: the rounding of
+            # the smoothed values (~eps32 of the input) is what remains
+            err = float(np.abs(host(e[sl]).astype(f64) - r[inner]).max())
+            check(err <= 1e-6 * vmax, f"hessian element: {err:.3e} "
+                                      f"(tol 1e-6 of max|volume|)")
+            errs.append(err / vmax)
+        msgs.append(f"within {max(errs):.3e} of max|volume| (tol 1e-6)")
+        H = np.stack([host(e).ravel().astype(f64) for e in elems], -1)
+        pick = rng.integers(0, H.shape[0], 100000)
+        a, b, c, d, e_, f = H[pick].T
+        M = np.stack([np.stack([a, b, c], -1), np.stack([b, d, e_], -1),
+                      np.stack([c, e_, f], -1)], -2)
+        ref = np.linalg.eigvalsh(M)[:, ::-1].T
+        got_e = host(eig).reshape(3, -1)[:, pick]
+        # the closed form's arccos near +-1 turns float32 rounding into
+        # ~sqrt(eps32) of the angle: 8.5e-5 of max|eigenvalue| over a
+        # whole 128^3 volume on the CPU
+        msgs.append(rel(got_e, ref, 5e-4, "max|eigenvalue|"))
+        return f"elements {msgs[0]} (a window vs scipy); eigenvalues " \
+            f"{msgs[-1]} (1e5 voxels vs eigvalsh)"
+
+    def ncc_points(got):
+        """match_template at sampled windows against the direct float64
+        normalized cross-correlation.  The bound: float32 window sums are
+        differences of a two-stage cumulative sum whose largest prefix is
+        P = 31 * (n + 62) * max|x|^2; each carries ~eps32 * P, so the
+        correlation moves by at most ~8 eps32 P / V, V the smallest
+        window variance sum sampled."""
+        f32(got)
+        gh = host(got)
+        m = n - 30
+        pick = np.concatenate([rng.integers(0, m, (2000, 2)),
+                               [[0, 0], [m - 1, m - 1], [0, m - 1]]])
+        t = tmpl.astype(f64) - tmpl.mean(dtype=f64)
+        vals, vmin = [], np.inf
+        for i, j in pick:
+            win_ = x64[i:i + 31, j:j + 31]
+            win_ = win_ - win_.mean()
+            v = (win_ * win_).sum()
+            vmin = min(vmin, v)
+            vals.append((win_ * t).sum() / np.sqrt(v * (t * t).sum()))
+        P = 31 * (n + 62) * float(np.abs(x64).max()) ** 2
+        tol = 8 * np.finfo(np.float32).eps * P / vmin
+        err = float(np.abs(gh[tuple(pick.T)] - np.array(vals)).max())
+        check(got.shape == (m, m), f"match_template shape {got.shape}")
+        check(err <= tol, f"match_template: {err:.3e} (tol {tol:.2e})")
+        return f"{err:.3e} at 2003 windows vs direct float64 NCC (tol " \
+               f"8 eps32 P / V = {tol:.2e})"
+
+    def daisy_check(got):
+        f32(got)
+        step, radius = 4, 15
+        r0 = c0 = n2 // 4            # a multiple of the step
+        margin = 48
+        sub = img2[r0 - margin:r0 + 2 * w + margin,
+                   c0 - margin:c0 + 2 * w + margin].astype(f64)
+        ref = _daisy_reference(sub, step, radius, 3, 8, 8)
+        # descriptor (a, b) of the window: pixel r0 - margin + 15 + 4a
+        a0 = (margin - 15 + 15) // step   # clear of the gaussians' reach
+        k = (r0 - margin) // step
+        sl = slice(a0, a0 + (2 * w - 2 * margin) // step)
+        return rel(host(got)[k + sl.start:k + sl.stop,
+                             k + sl.start:k + sl.stop], ref[sl, sl], 1e-5) \
+            + " (a window vs scipy's gaussians in float64)"
+
+    def ssim(got):
+        x, y = x64, noisy.astype(f64)
+        f = lambda v: sndi.uniform_filter(v, 7)  # noqa: E731
+        ux, uy = f(x), f(y)
+        cov = 49 / 48
+        vx, vy = cov * (f(x * x) - ux * ux), cov * (f(y * y) - uy * uy)
+        vxy = cov * (f(x * y) - ux * uy)
+        c1, c2 = (0.01 * 2) ** 2, (0.03 * 2) ** 2
+        S = ((2 * ux * uy + c1) * (2 * vxy + c2)
+             / ((ux * ux + uy * uy + c1) * (vx + vy + c2)))
+        ref = S[3:-3, 3:-3].mean()
+        check(got.dtype == torch.float64, "SSIM dtype")
+        err = abs(float(got) - ref) / abs(ref)
+        check(err <= 1e-10, f"SSIM: {err:.3e} relative")
+        return f"{err:.3e} relative (tol 1e-10) vs scipy's uniform filters"
+
+    mse_ref = np.mean((x64 - noisy.astype(f64)) ** 2)
+
+    def scalar(ref_fn):
+        def verify(got):
+            ref = ref_fn()
+            err = abs(float(got) - ref) / abs(ref)
+            check(err <= 1e-5, f"{err:.3e} relative")
+            return f"{err:.3e} relative (tol 1e-5) vs float64 numpy"
+        return verify
+
+    def estimated(truth):
+        def verify(got):
+            check(isinstance(got.params, np.ndarray)
+                  and got.params.dtype == f64, "params not float64 numpy")
+            err = float(np.abs(got.params / got.params[2, 2]
+                               - truth / truth[2, 2]).max())
+            check(err <= 1e-9, f"params {err:.3e} from the truth")
+            return f"params {err:.3e} from the truth (tol 1e-9)"
+        return verify
+
+    def piecewise(got):
+        f32(got)
+        rr, cc = window(npw // 4, npw // 4, got.shape, npw // 2)
+        pts = np.stack([cc.ravel(), rr.ravel()], -1)
+        src_pts = host(pw(torch.from_numpy(pts)))
+        ref = sample(img[:npw, :npw].astype(f64), src_pts[:, 1].reshape(
+            rr.shape), src_pts[:, 0].reshape(rr.shape), 1, "constant")
+        ref = np.where((src_pts[:, 0] == -1).reshape(rr.shape), 0.0, ref)
+        ref = _clip_to(ref, img[:npw, :npw], "constant", 0.0)
+        sl = (slice(npw // 4, npw // 4 + rr.shape[0]),
+              slice(npw // 4, npw // 4 + rr.shape[1]))
+        check((pw._tesselation.find_simplex(pts) >= 0).all(),
+              "window outside the mesh")
+        return rel(got[sl], ref, 1e-5) + " (a window vs map_coordinates " \
+            "at the host mesh's points)"
+
+    G = {"spline_gather": 1}
+    B1G = {"spline_gather": 1, "fused_separable_correlate": 1}
+    calls = []
+
+    def call(label, fn, verify, kernels=None):
+        calls.append((label, kernels or {}, fn, verify))
+
+    call(f"resize({n}^2 -> {n2}^2 f32, order 1, anti-aliased)",
+         lambda: ttr.resize(imgc, (n2, n2)),
+         zoomed(x64, (2.0, 2.0), 1, sigma=0.5), B1G)
+    call(f"resize({n2}^2 -> {n}^2 f32, order 3)",
+         lambda: ttr.resize(img2c, (n, n), order=3),
+         zoomed(x2_64, (0.5, 0.5), 3), B1G)
+    call(f"rescale({n}^2x3 f32, 0.5, multichannel)",
+         lambda: ttr.rescale(rgbc, 0.5, multichannel=True),
+         zoomed(rgb.astype(f64), (2.0, 2.0), 1, sigma=(0.5, 0.5, 0)), B1G)
+    call(f"rotate({n}^2 f32, 30, order 1)",
+         lambda: ttr.rotate(imgc, 30, order=1), rotated(1, False), G)
+    call(f"rotate({n}^2 f32, 30, order 3, resize)",
+         lambda: ttr.rotate(imgc, 30, order=3, resize=True),
+         rotated(3, True), B1G)
+    call(f"warp({n}^2 f32, AffineTransform)",
+         lambda: ttr.warp(imgc, aff), warped(x64, aff.params, 1, "constant"),
+         G)
+    call(f"warp({n}^2 f32, ProjectiveTransform)",
+         lambda: ttr.warp(imgc, proj, mode="edge"),
+         warped(x64, proj.params, 1, "nearest"), G)
+    call(f"swirl({n}^2 f32)", lambda: ttr.swirl(imgc, **swirl_kw), swirled,
+         G)
+    call(f"warp_polar({n}^2 f32)", lambda: ttr.warp_polar(imgc), polar, G)
+    call(f"pyramid_gaussian({n}^2 f32, 5 levels)",
+         lambda: list(ttr.pyramid_gaussian(imgc, max_layer=4)),
+         pyramid("gaussian"),
+         {"spline_gather": 4, "fused_separable_correlate": 4})
+    call(f"pyramid_laplacian({n}^2 f32, 5 levels)",
+         lambda: list(ttr.pyramid_laplacian(imgc, max_layer=4)), laplacian,
+         {"spline_gather": 4, "fused_separable_correlate": 5})
+    call(f"integral_image({n}^2 u8)", lambda: ttr.integral_image(u8c),
+         integral)
+    call(f"integrate({n}^2 integral, 1e5 windows)",
+         lambda: ttr.integrate(iic, starts, ends), integrated)
+    call(f"downscale_local_mean({n}^2 f32, (4, 4))",
+         lambda: ttr.downscale_local_mean(imgc, (4, 4)), local_mean)
+    call(f"corner_harris({n}^2 f32)", lambda: tfeat.corner_harris(imgc),
+         corner("harris"), {"fused_separable_correlate": 5})
+    call(f"corner_shi_tomasi({n}^2 f32)",
+         lambda: tfeat.corner_shi_tomasi(imgc), corner("shi_tomasi"),
+         {"fused_separable_correlate": 5})
+    call(f"corner_peaks(harris of smooth {n}^2, 25)",
+         lambda: tfeat.corner_peaks(harris_smooth, min_distance=25),
+         same_as_cpu(lambda h: tfeat.corner_peaks(h, min_distance=25),
+                     harris_smooth), {"fused_separable_minmax": 1})
+    call(f"hessian_matrix_det({n}^2 f32, SURF, f64 integral)",
+         lambda: tfeat.hessian_matrix_det(imgc), hessian_det)
+    call(f"shape_index({n}^2 f32)", lambda: tfeat.shape_index(imgc),
+         shape_idx, {"fused_separable_correlate": 1})
+    call(f"hessian_matrix + eigvals({nv}^3 f32)",
+         lambda: (lambda h: (h, tfeat.hessian_matrix_eigvals(h)))(
+             tfeat.hessian_matrix(volc)), hessian3d,
+         {"fused_separable_correlate": 1})
+    call(f"peak_local_max(smooth {n}^2 f32, 5)",
+         lambda: tfeat.peak_local_max(smoothc, min_distance=5),
+         same_as_cpu(lambda x: tfeat.peak_local_max(x, min_distance=5),
+                     smoothc), {"fused_separable_minmax": 1})
+    call(f"peak_local_max(smooth {n}^2 f32, 5, 16 labels)",
+         lambda: tfeat.peak_local_max(smoothc, min_distance=5,
+                                      labels=blocksc),
+         same_as_cpu(lambda x, lb: tfeat.peak_local_max(
+             x, min_distance=5, labels=lb), smoothc, blocksc),
+         {"fused_separable_minmax": 16})
+    call(f"match_template({n}^2 f32, 31x31)",
+         lambda: tfeat.match_template(imgc, tmplc), ncc_points,
+         {"fft_rows": 2, "fft_strided": 4})
+    call(f"daisy({n2}^2 f32)", lambda: tfeat.daisy(img2c), daisy_check,
+         {"fused_separable_correlate": 32})
+    call(f"structural_similarity({n}^2 f32 pair, f64)",
+         lambda: tmet.structural_similarity(imgc, noisyc), ssim)
+    call(f"mean_squared_error({n}^2 f32)",
+         lambda: tmet.mean_squared_error(imgc, noisyc),
+         scalar(lambda: mse_ref))
+    call(f"normalized_root_mse({n}^2 f32)",
+         lambda: tmet.normalized_root_mse(imgc, noisyc),
+         scalar(lambda: np.sqrt(mse_ref) / np.sqrt(np.mean(x64 ** 2))))
+    call(f"peak_signal_noise_ratio({n}^2 f32)",
+         lambda: tmet.peak_signal_noise_ratio(imgc, noisyc),
+         scalar(lambda: 10 * np.log10(1.0 / mse_ref)))
+    call("estimate_transform(similarity, 1000 points)",
+         lambda: ttr.estimate_transform("similarity", src, dst_sim),
+         estimated(sim.params))
+    call("estimate_transform(projective, 1000 points)",
+         lambda: ttr.estimate_transform("projective", src, dst_proj),
+         estimated(proj_true))
+    call(f"warp({npw}^2 f32, PiecewiseAffineTransform 9x9)",
+         lambda: ttr.warp(pwc, pw), piecewise, G)
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        for c in counters.values():
+            c.launches = 0
+        results, deltas = {}, {}
+        for label, _, fn, _ in calls:
+            before = {k: c.launches for k, c in counters.items()}
+            results[label] = fn()
+            deltas[label] = {k: c.launches - before[k]
+                             for k, c in counters.items()}
+        sync()
+        launches = {k: c.launches for k, c in counters.items()}
+        checks = {}
+        for label, kernels, _, verify in calls:
+            want = {k: kernels.get(k, 0) for k in counters}
+            check(deltas[label] == want,
+                  f"{label} launched {deltas[label]}, not as planned")
+            try:
+                checks[label] = verify(results.pop(label))
+            except RuntimeError as err:
+                raise RuntimeError(f"transform path {label}: {err}") from err
+        print(f"transform path launches: {json.dumps(launches)}")
+        rows = []
+        for label, kernels, fn, _ in calls:
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            slow = time.perf_counter() - t0 > 0.1
+            ms = median_ms(fn, n=3 if slow else 10, n_warmup=0 if slow
+                           else 2)
+            route = " + ".join(f"{k} x{v}" for k, v in kernels.items()) or (
+                "host numpy" if label.startswith("estimate_transform")
+                else "plain torch")
+            rows.append({"case": label, "route": route, "ms": ms,
+                         "check": checks[label]})
+            print(f"transform path {label:52s} {ms:10.3f} ms ({route}) "
+                  f"vs reference: {checks[label]}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return rows, launches
+
+
 def fft_bound(numel, n, in_bytes, out_bytes, mul_bytes=0):
     """(bound_ms, bound_by) of one FFT pass over ``numel`` points along
     an axis of ``n``: one read of each operand and one write at
@@ -3032,6 +3740,12 @@ def main():
     torch.cuda.empty_cache()
     sk_rows, sk_launches = skimage_path(all_counters, torch)
     torch.cuda.empty_cache()
+    tr_rows, tr_launches = transform_path(all_counters, torch)
+    for kernel in ("fused_separable_correlate", "fused_separable_minmax",
+                   "spline_gather", "fft_rows", "fft_strided"):
+        check(tr_launches[kernel] >= 1,
+              f"{kernel} not launched on the transform path")
+    torch.cuda.empty_cache()
 
     # -- phase 5: times -----------------------------------------------------
     F = torch.nn.functional
@@ -3380,6 +4094,7 @@ def main():
     print(json.dumps({"card": card, "cases": list(rows.values()),
                       "plain_torch": plain_rows + sig_plain_rows
                       + meas_rows + base_rows + sk_rows,
+                      "transform_path": tr_rows,
                       "end_to_end": [fft_e2e], "conv_methods": conv_methods}))
     stencil = "cupyimg_tpu/ops/pallas_stencil.py"
     kernels = [
@@ -3484,6 +4199,12 @@ def main():
         # profile_line runs the gather and B1's prefilter
         if entry["name"] in ("spline_gather", "fused_separable_correlate"):
             entry["launches_skimage_path"] = sk_launches[entry["name"]]
+        # the warps, pyramids, corners, peaks, daisy and match_template
+        if entry["name"] in tr_launches:
+            entry["launches_transform_path"] = tr_launches[entry["name"]]
+        if entry["name"] == "fused_fft":
+            entry["launches_transform_path"] = (tr_launches["fft_rows"]
+                                                + tr_launches["fft_strided"])
     line[-1]["entries"] = [
         {k: rows[lb][k] for k in ("case", "ms", "kernel_ms", "plain_ms",
                                   "bound_ms", "bound_by", "library_ms",

@@ -128,9 +128,14 @@ def _real_np_dtype(dtype):
 
 
 def _dot0(w: np.ndarray, y):
-    """``w . y`` over axis 0, ``w`` cast to ``y``'s dtype and device."""
-    wt = torch.as_tensor(w, device=y.device).to(y.dtype)
-    return torch.tensordot(wt, y, dims=([0], [0]))
+    """``w . y`` over axis 0 on ``y``'s device, summed in float64
+    (complex128) and rounded once to ``y``'s dtype.  Multiply-adds, not
+    ``torch.tensordot``: a float32 product there may take TF32 on the
+    card."""
+    wide = torch.complex128 if y.is_complex() else torch.float64
+    wt = torch.as_tensor(np.asarray(w, np.float64), device=y.device)
+    wt = wt.reshape((-1,) + (1,) * (y.ndim - 1))
+    return (wt * y.to(wide)).sum(dim=0).to(y.dtype)
 
 
 def _apply_axis0(x, order: int, spline_mode: str, nb: int):

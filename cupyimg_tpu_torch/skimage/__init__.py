@@ -4,8 +4,12 @@ dtype conversions, views, ``invert``, ``random_noise``, ``map_array``,
 ``regionprops``, the moments, perimeters, ``profile_line``, polygons,
 ``block_reduce``), ``skimage.color`` (the colour spaces, stains,
 ``label2rgb``, ``deltaE_*``), ``skimage.exposure`` (histograms, their
-equalization and matching, the intensity corrections) and the shared
-helpers of ``skimage._shared``.  The ``img_as_*`` conversions and
+equalization and matching, the intensity corrections),
+``skimage.transform`` (the geometric transforms, the warps, the integral
+images, the pyramids), ``skimage.feature`` (all but ``canny``: the
+corner and Hessian features, ``peak_local_max``, ``match_template``,
+``daisy``), ``skimage.metrics`` and the shared helpers of
+``skimage._shared``.  The ``img_as_*`` conversions and
 ``dtype_limits`` are re-exported here, as skimage does."""
 
 from .util.dtype import (  # noqa: F401,E402

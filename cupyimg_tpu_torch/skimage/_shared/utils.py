@@ -111,6 +111,17 @@ def _supported_float_type(input_dtype, allow_complex=False):
     return np.float64
 
 
+# numpy.pad's names (skimage's modes) onto the ndimage modes of
+# ``core.boundary``
+NUMPY_PAD_TO_NDIMAGE = {
+    "constant": "constant",
+    "edge": "nearest",
+    "symmetric": "reflect",
+    "reflect": "mirror",
+    "wrap": "wrap",
+}
+
+
 def check_nD(array, ndim, arg_name="image"):
     """Raise ValueError unless ``array`` is non-empty with one of the
     dimensionalities ``ndim`` (an int or a list)."""

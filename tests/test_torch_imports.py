@@ -86,6 +86,25 @@ SLICE_8 = [
 ]
 
 
+# modules of skimage.transform, skimage.feature (all but canny) and
+# skimage.metrics
+SLICE_9 = [
+    "cupyimg_tpu_torch.skimage.transform",
+    "cupyimg_tpu_torch.skimage.transform._geometric",
+    "cupyimg_tpu_torch.skimage.transform.integral",
+    "cupyimg_tpu_torch.skimage.transform._warps",
+    "cupyimg_tpu_torch.skimage.transform.pyramids",
+    "cupyimg_tpu_torch.skimage.feature",
+    "cupyimg_tpu_torch.skimage.feature.peak",
+    "cupyimg_tpu_torch.skimage.feature.corner",
+    "cupyimg_tpu_torch.skimage.feature.template",
+    "cupyimg_tpu_torch.skimage.feature._daisy",
+    "cupyimg_tpu_torch.skimage.metrics",
+    "cupyimg_tpu_torch.skimage.metrics.simple_metrics",
+    "cupyimg_tpu_torch.skimage.metrics._structural_similarity",
+]
+
+
 def _forbidden(name):
     return name.split(".")[0] in ("jax", "jaxlib", "cupyimg_tpu")
 
@@ -94,10 +113,11 @@ def test_every_port_module_imports_without_jax():
     out = json.loads(subprocess.run(
         [sys.executable, "-c", _IMPORT_ALL], cwd=ROOT, capture_output=True,
         text=True, timeout=300, check=True).stdout)
-    assert len(out["names"]) >= 82  # every module of the package was imported
+    assert len(out["names"]) >= 95  # every module of the package was imported
     assert set(SLICE_6) <= set(out["names"])
     assert set(SLICE_7) <= set(out["names"])
     assert set(SLICE_8) <= set(out["names"])
+    assert set(SLICE_9) <= set(out["names"])
     assert out["bad"] == []
 
 
