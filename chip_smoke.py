@@ -120,7 +120,17 @@ Phases, each fatal on failure (a traceback and a non-zero exit):
    launches of B1 (correlation, min/max), the gather and the FFT
    kernel held to its plan, each result against scipy/numpy (the warps
    on output windows) or the port's CPU result (the peak finders,
-   exactly), each timed;
+   exactly), each timed; then the filters path, its counts set to 0
+   before it, with matmul TF32 allowed: gaussian, difference_of_gaussians,
+   median (float32 and uint8), unsharp_mask, window, canny, sobel,
+   threshold_otsu, threshold_local and gabor on 4096^2, frangi (five
+   sigmas), the TV denoiser and richardson_lucy (5x5, 10 iterations) on
+   2048^2, wiener and unsupervised_wiener on the 512^2 float64 input of
+   ``tests/data/restoration``; each call's launches of B1, B3, the
+   gather and B2 held to its plan (the float64 and uint8 calls launch
+   none), each result against scipy/numpy on windows, a float64
+   numpy/scipy canny and Richardson-Lucy, the port's CPU result on crops
+   (frangi, the TV denoiser) or the restoration goldens, each timed;
 5. times from CUDA events (median over up to 100 launches after a
    warm-up), printed as one ``{"cases": ...}`` and one ``{"kernels":
    ...}`` JSON line, with each kernel's bound and a PyTorch yardstick
@@ -289,6 +299,98 @@ def same(a, b):
             return False
         a, b = a.masked_fill(na, 0), b.masked_fill(nb, 0)
     return torch.equal(a, b)
+
+
+def dev(x):
+    """A contiguous CUDA tensor of a numpy array."""
+    import torch
+
+    return torch.from_numpy(np.ascontiguousarray(x)).cuda()
+
+
+def host(v):
+    """A tensor, or a list or tuple of them, as numpy; else ``v``."""
+    import torch
+
+    if isinstance(v, torch.Tensor):
+        return v.cpu().numpy()
+    if isinstance(v, (list, tuple)):
+        return [host(u) for u in v]
+    return v
+
+
+def rel(got, ref, tol, what="max|ref|"):
+    """max|got - ref| over max|ref|, finite and of ``ref``'s shape."""
+    got = np.asarray(host(got), np.float64)
+    ref = np.asarray(ref, np.float64)
+    check(got.shape == ref.shape, f"shape {got.shape}, want {ref.shape}")
+    check(np.isfinite(got).all(), "non-finite values")
+    scale = float(np.abs(ref).max()) or 1.0
+    err = float(np.abs(got - ref).max()) / scale
+    check(err <= tol, f"{err:.3e} of {what} (tol {tol:.0e})")
+    return f"{err:.3e} of {what} (tol {tol:.0e})"
+
+
+def identical(got, ref):
+    """``got`` equals ``ref``, dtype included."""
+    got = host(got)
+    check(np.asarray(got).dtype == np.asarray(ref).dtype,
+          f"dtype {np.asarray(got).dtype}, want {np.asarray(ref).dtype}")
+    check(np.array_equal(got, ref), "differs from its reference")
+    return "exact"
+
+
+def _run_calls(phase, counters, calls, torch, plain_route="plain torch"):
+    """Run a path's ``calls`` (label, {kernel: launches}, call, check)
+    once with every count set to 0 and TF32 allowed (a float32 call that
+    a matmul served would show), hold each call's launches to its plan
+    and its result to its check, then time each call (CUDA events: median
+    of 10 after 2 warm-ups, of 3 for calls over 100 ms).  Returns the
+    rows and the path's launches.  ``plain_route(label)`` names the route
+    of a call that launches no kernel."""
+    sync = torch.cuda.synchronize
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        for c in counters.values():
+            c.launches = 0
+        results, deltas = {}, {}
+        for label, _, fn, _ in calls:
+            before = {k: c.launches for k, c in counters.items()}
+            results[label] = fn()
+            deltas[label] = {k: c.launches - before[k]
+                             for k, c in counters.items()}
+        sync()
+        launches = {k: c.launches for k, c in counters.items()}
+        checks = {}
+        for label, kernels, _, verify in calls:
+            want = {k: kernels.get(k, 0) for k in counters}
+            check(deltas[label] == want,
+                  f"{label} launched {deltas[label]}, not as planned")
+            try:
+                checks[label] = verify(results.pop(label))
+            except RuntimeError as err:
+                raise RuntimeError(f"{phase} {label}: {err}") from err
+        print(f"{phase} launches: {json.dumps(launches)}")
+        width = max(len(label) for label, *_ in calls)
+        rows = []
+        for label, kernels, fn, _ in calls:
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            slow = time.perf_counter() - t0 > 0.1
+            ms = median_ms(fn, n=3 if slow else 10, n_warmup=0 if slow
+                           else 2)
+            route = " + ".join(f"{k} x{v}" for k, v in kernels.items()) or (
+                plain_route if isinstance(plain_route, str)
+                else plain_route(label))
+            rows.append({"case": label, "route": route, "ms": ms,
+                         "check": checks[label]})
+            print(f"{phase} {label:{width}s} {ms:10.3f} ms ({route}) "
+                  f"vs reference: {checks[label]}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return rows, launches
 
 
 def least_ces(footprint, rank):
@@ -1884,9 +1986,6 @@ def base_path(counters, torch, lab2c):
     rng = np.random.default_rng(11)
     f64 = np.float64
 
-    def dev(x):
-        return torch.from_numpy(np.ascontiguousarray(x)).cuda()
-
     img = rng.random((4096, 4096), dtype=np.float32)
     w32 = rng.random((4096, 4096), dtype=np.float32)
     wi32 = rng.integers(0, 100, (4096, 4096)).astype(np.int32)
@@ -1937,13 +2036,6 @@ def base_path(counters, torch, lab2c):
     rgi_near = RegularGridInterpolator(grid, gvalsc, method="nearest")
     torch.cuda.synchronize()
 
-    def host(v):
-        if isinstance(v, torch.Tensor):
-            return v.cpu().numpy()
-        if isinstance(v, (list, tuple)):
-            return [host(u) for u in v]
-        return v
-
     def exact(label, got, ref):
         got, ref = host(got), ref
         if isinstance(ref, (list, tuple)):
@@ -1971,7 +2063,7 @@ def base_path(counters, torch, lab2c):
         check(err <= tol, f"{label}: {err:.3e} of {what} (tol {tol:.0e})")
         return f"{err:.3e} of {what} (tol {tol:.0e})"
 
-    def rel(label, got, ref, tol, floor=1e-300):
+    def rel_each(label, got, ref, tol, floor=1e-300):
         """Relative error, below ``floor`` absolute (inf and NaN in
         place)."""
         got = np.atleast_1d(np.asarray(host(got), f64))
@@ -1997,7 +2089,7 @@ def base_path(counters, torch, lab2c):
         # numpy sums the weights of each 65536-sample block in float64 and
         # the blocks' float32 partial sums in float32; the port sums in
         # float64
-        return rel(label, h, nh, 1e-5)
+        return rel_each(label, h, nh, 1e-5)
 
     def hist_int64(ref_fn):
         """Counts in int64 (numpy: integer weights in their own dtype,
@@ -2029,7 +2121,7 @@ def base_path(counters, torch, lab2c):
                 ref = fn(*args)
             # float64 inside, one rounding to float32, as scipy's loops;
             # kl_div cancels where x is near y, hence the floor
-            return rel(label, got, ref, 1e-6, floor=1e-6)
+            return rel_each(label, got, ref, 1e-6, floor=1e-6)
         return verify
 
     def gaussian(label, g):
@@ -2153,7 +2245,7 @@ def base_path(counters, torch, lab2c):
         ("pseudo_huber(4096^2 f32)", lambda: tsp.pseudo_huber(syc, sxc),
          special(sps.pseudo_huber, sy, sx)),
         ("entropy(2^20 f64)", lambda: tst.entropy(pkc, base=2),
-         lambda label, got: rel(label, got, spst.entropy(pk, base=2),
+         lambda label, got: rel_each(label, got, spst.entropy(pk, base=2),
                                 1e-10)),
         ("RegularGridInterpolator(256^3, 2^20 points, linear)",
          lambda: rgi_lin(xic),
@@ -2321,12 +2413,6 @@ def skimage_path(counters, torch):
     rng = np.random.default_rng(12)
     f64 = np.float64
 
-    def dev(x):
-        return torch.from_numpy(np.ascontiguousarray(x)).cuda()
-
-    def host(v):
-        return v.cpu().numpy() if isinstance(v, torch.Tensor) else v
-
     # ~1000 blobs of ~1000 pixels: coarse noise, upsampled, thresholded
     coarse = rng.random((96, 96), dtype=np.float32)
     blobs = sndi.zoom(coarse, 2048 / 96, order=3)[:2048, :2048] > 0.72
@@ -2363,23 +2449,6 @@ def skimage_path(counters, torch):
 
     def call(label, fn, verify, kernels=None):
         calls.append((label, kernels or {}, fn, verify))
-
-    def rel(got, ref, tol, what="max|ref|"):
-        got = np.asarray(host(got), f64)
-        ref = np.asarray(ref, f64)
-        check(got.shape == ref.shape, f"shape {got.shape}, want {ref.shape}")
-        check(np.isfinite(got).all(), "non-finite values")
-        scale = float(np.abs(ref).max()) or 1.0
-        err = float(np.abs(got - ref).max()) / scale
-        check(err <= tol, f"{err:.3e} of {what} (tol {tol:.0e})")
-        return f"{err:.3e} of {what} (tol {tol:.0e})"
-
-    def exact(got, ref):
-        got = host(got)
-        check(np.asarray(got).dtype == np.asarray(ref).dtype,
-              f"dtype {np.asarray(got).dtype}, want {np.asarray(ref).dtype}")
-        check(np.array_equal(got, ref), "differs from its reference")
-        return "exact"
 
     def cpu_crop(fn, *arrays, tol):
         """The port's CPU result of the same call on a crop."""
@@ -2453,7 +2522,7 @@ def skimage_path(counters, torch):
     def hist(got):
         h, c = got
         lo = int(u16.min())
-        exact(h, np.bincount(u16.ravel().astype(np.int64) - lo))
+        identical(h, np.bincount(u16.ravel().astype(np.int64) - lo))
         check(np.array_equal(host(c), np.arange(lo, int(u16.max()) + 1)),
               "bin centres")
         return "exact"
@@ -2469,7 +2538,7 @@ def skimage_path(counters, torch):
     def rescaled(got):
         x = u16.astype(f64)
         ref = ((x - x.min()) / (x.max() - x.min()) * 65535).astype(np.uint16)
-        return exact(got, ref)
+        return identical(got, ref)
 
     def clahe(x):
         def verify(got):
@@ -2558,46 +2627,7 @@ def skimage_path(counters, torch):
          lambda: texp.match_histograms(rgb_2kc, tmpl_2kc, channel_axis=-1),
          matched)
 
-    tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = True
-    try:
-        for c in counters.values():
-            c.launches = 0
-        results, deltas = {}, {}
-        for label, _, fn, _ in calls:
-            before = {k: c.launches for k, c in counters.items()}
-            results[label] = fn()
-            deltas[label] = {k: c.launches - before[k]
-                             for k, c in counters.items()}
-        torch.cuda.synchronize()
-        launches = {k: c.launches for k, c in counters.items()}
-        checks = {}
-        for label, kernels, _, verify in calls:
-            want = {k: kernels.get(k, 0) for k in counters}
-            check(deltas[label] == want,
-                  f"{label} launched {deltas[label]}, not as planned")
-            try:
-                checks[label] = verify(results.pop(label))
-            except RuntimeError as err:
-                raise RuntimeError(f"skimage path {label}: {err}") from err
-        print(f"skimage path launches: {json.dumps(launches)}")
-        rows = []
-        for label, kernels, fn, _ in calls:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            slow = time.perf_counter() - t0 > 0.1
-            ms = median_ms(fn, n=3 if slow else 10, n_warmup=0 if slow
-                           else 2)
-            route = " + ".join(f"{k} x{n}" for k, n in kernels.items()) or (
-                "plain torch")
-            rows.append({"case": label, "route": route, "ms": ms,
-                         "check": checks[label]})
-            print(f"skimage path {label:58s} {ms:10.3f} ms ({route}) "
-                  f"vs reference: {checks[label]}")
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = tf32
-    return rows, launches
+    return _run_calls("skimage path", counters, calls, torch)
 
 
 def _clip_to(ref, x, mode, cval):
@@ -2687,12 +2717,6 @@ def transform_path(counters, torch):
     n, n2, nv, npw, w = 4096, 2048, 256, 1024, 256
     sync = torch.cuda.synchronize
 
-    def dev(x):
-        return torch.from_numpy(np.ascontiguousarray(x)).cuda()
-
-    def host(v):
-        return v.cpu().numpy() if isinstance(v, torch.Tensor) else v
-
     img = rng.random((n, n), dtype=np.float32)
     img2 = rng.random((n2, n2), dtype=np.float32)
     rgb = rng.random((n, n, 3), dtype=np.float32)
@@ -2754,23 +2778,6 @@ def transform_path(counters, torch):
         rr = np.arange(r0, min(r0 + size, shape[0]), dtype=f64)
         cc = np.arange(c0, min(c0 + size, shape[1]), dtype=f64)
         return np.meshgrid(rr, cc, indexing="ij")
-
-    def rel(got, ref, tol, what="max|ref|"):
-        got = np.asarray(host(got), f64)
-        ref = np.asarray(ref, f64)
-        check(got.shape == ref.shape, f"shape {got.shape}, want {ref.shape}")
-        check(np.isfinite(got).all(), "non-finite values")
-        scale = float(np.abs(ref).max()) or 1.0
-        err = float(np.abs(got - ref).max()) / scale
-        check(err <= tol, f"{err:.3e} of {what} (tol {tol:.0e})")
-        return f"{err:.3e} of {what} (tol {tol:.0e})"
-
-    def exact(got, ref):
-        got = host(got)
-        check(np.asarray(got).dtype == np.asarray(ref).dtype,
-              f"dtype {np.asarray(got).dtype}, want {np.asarray(ref).dtype}")
-        check(np.array_equal(got, ref), "differs from its reference")
-        return "exact"
 
     def f32(got):
         check(got.dtype == torch.float32, f"dtype {got.dtype}, not float32")
@@ -2909,7 +2916,7 @@ def transform_path(counters, torch):
                f"range (tol 1e-5)"
 
     def integral(got):
-        return exact(got, u8.astype(np.int64).cumsum(0).cumsum(1))
+        return identical(got, u8.astype(np.int64).cumsum(0).cumsum(1))
 
     ii_host = u8.astype(np.int64).cumsum(0).cumsum(1)
     iic = dev(ii_host)
@@ -3251,47 +3258,335 @@ def transform_path(counters, torch):
     call(f"warp({npw}^2 f32, PiecewiseAffineTransform 9x9)",
          lambda: ttr.warp(pwc, pw), piecewise, G)
 
-    tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = True
-    try:
-        for c in counters.values():
-            c.launches = 0
-        results, deltas = {}, {}
-        for label, _, fn, _ in calls:
-            before = {k: c.launches for k, c in counters.items()}
-            results[label] = fn()
-            deltas[label] = {k: c.launches - before[k]
-                             for k, c in counters.items()}
-        sync()
-        launches = {k: c.launches for k, c in counters.items()}
-        checks = {}
-        for label, kernels, _, verify in calls:
-            want = {k: kernels.get(k, 0) for k in counters}
-            check(deltas[label] == want,
-                  f"{label} launched {deltas[label]}, not as planned")
-            try:
-                checks[label] = verify(results.pop(label))
-            except RuntimeError as err:
-                raise RuntimeError(f"transform path {label}: {err}") from err
-        print(f"transform path launches: {json.dumps(launches)}")
-        rows = []
-        for label, kernels, fn, _ in calls:
-            t0 = time.perf_counter()
-            fn()
-            sync()
-            slow = time.perf_counter() - t0 > 0.1
-            ms = median_ms(fn, n=3 if slow else 10, n_warmup=0 if slow
-                           else 2)
-            route = " + ".join(f"{k} x{v}" for k, v in kernels.items()) or (
-                "host numpy" if label.startswith("estimate_transform")
-                else "plain torch")
-            rows.append({"case": label, "route": route, "ms": ms,
-                         "check": checks[label]})
-            print(f"transform path {label:52s} {ms:10.3f} ms ({route}) "
-                  f"vs reference: {checks[label]}")
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = tf32
-    return rows, launches
+    return _run_calls(
+        "transform path", counters, calls, torch,
+        lambda label: ("host numpy" if label.startswith("estimate_transform")
+                       else "plain torch"))
+
+
+def _canny_reference(img, sigma, low, high):
+    """skimage's canny in numpy/scipy, float64 throughout, no mask: the
+    masked gaussian's quotient, the sobels, the four sectors' non-maximum
+    suppression in skimage's order and the hysteresis by ``label``."""
+    import scipy.ndimage as sndi
+
+    eps = np.finfo(np.float64).eps
+    smoothed = sndi.gaussian_filter(img.astype(np.float64), sigma,
+                                    mode="constant") / (
+        sndi.gaussian_filter(np.ones(img.shape), sigma, mode="constant")
+        + eps)
+    isobel = sndi.sobel(smoothed, axis=0)
+    jsobel = sndi.sobel(smoothed, axis=1)
+    ai, aj = np.abs(isobel), np.abs(jsobel)
+    mag = np.hypot(isobel, jsobel)
+    eroded = sndi.binary_erosion(np.ones(img.shape, bool),
+                                 np.ones((3, 3), bool), border_value=0)
+    eroded &= mag > 0
+    pad = np.pad(mag, 1)
+    n0, n1 = img.shape
+
+    def m(di, dj):
+        return pad[1 + di:1 + di + n0, 1 + dj:1 + dj + n1]
+
+    with np.errstate(divide="ignore", invalid="ignore"):
+        w_ij = np.where(ai == 0, 0.0, aj / np.where(ai == 0, 1.0, ai))
+        w_ji = np.where(aj == 0, 0.0, ai / np.where(aj == 0, 1.0, aj))
+
+    def le(c2, c1, w):
+        return c2 * w + c1 * (1 - w) <= mag
+
+    same = ((isobel >= 0) & (jsobel >= 0)) | ((isobel <= 0) & (jsobel <= 0))
+    opp = ((isobel <= 0) & (jsobel >= 0)) | ((isobel >= 0) & (jsobel <= 0))
+    local = np.zeros(img.shape, bool)
+    for pts, val in (
+            (eroded & same & (ai >= aj),
+             le(m(1, 1), m(1, 0), w_ij) & le(m(-1, -1), m(-1, 0), w_ij)),
+            (eroded & same & (ai <= aj),
+             le(m(1, 1), m(0, 1), w_ji) & le(m(-1, -1), m(0, -1), w_ji)),
+            (eroded & opp & (ai <= aj),
+             le(m(-1, 1), m(0, 1), w_ji) & le(m(1, -1), m(0, -1), w_ji)),
+            (eroded & opp & (ai >= aj),
+             le(m(-1, 1), m(-1, 0), w_ij) & le(m(1, -1), m(1, 0), w_ij))):
+        local = np.where(pts, val, local)
+    high_mask = local & (mag >= high)
+    low_mask = local & (mag >= low)
+    labels, count = sndi.label(low_mask, np.ones((3, 3), bool))
+    good = np.zeros(count + 1, bool)
+    good[labels[high_mask]] = True
+    good[0] = False
+    return good[labels]
+
+
+def _tv(x):
+    """The anisotropic total variation of a 2-D array (float64)."""
+    x = np.asarray(x, np.float64)
+    return float(np.abs(np.diff(x, axis=0)).sum()
+                 + np.abs(np.diff(x, axis=1)).sum())
+
+
+def filters_path(counters, torch):
+    """Phase 4, filters path: ``skimage.filters``, ``feature.canny`` and
+    ``skimage.restoration`` at full size (4096^2 float32 images; frangi,
+    the TV denoiser and Richardson-Lucy at 2048^2; the Wiener pair on the
+    512^2 float64 restoration input of ``tests/data/restoration``), the
+    counts set to 0 just before it and read just after, matmul TF32
+    allowed.  The float32 calls run on the kernels: B1's correlation
+    (gaussian, difference_of_gaussians, unsharp_mask, frangi's Hessian
+    for the sigmas of at most 64 taps, canny's image gaussian), B3
+    (median of float32), the gather's map entry (window) and B2
+    (richardson_lucy's two convolutions an iteration); each call's
+    launches must be as planned, and every other call (the float64 edge
+    filters, local thresholds and gabor, the uint8 median, the TV
+    denoiser, the Wiener pair on torch.fft) launches none.  Each result
+    is held against scipy/numpy on the host (on windows for the
+    stencils; canny and Richardson-Lucy whole, in float64), against the
+    port's CPU result on crops (frangi, the TV denoiser) or against the
+    restoration goldens (wiener, unsupervised_wiener).  Times each call
+    (median of 10 after 2 warm-ups; 3 after none for calls of more than
+    100 ms).  Returns the calls' rows and the path's launches."""
+    import os
+
+    import scipy.ndimage as sndi
+    import scipy.signal as ssig
+    from scipy.signal import get_window
+
+    import cupyimg_tpu_torch.skimage.filters as tfil
+    import cupyimg_tpu_torch.skimage.restoration as trest
+    from cupyimg_tpu_torch.skimage.feature import canny
+
+    rng = np.random.default_rng(14)
+    f64 = np.float64
+    n, n2, w = 4096, 2048, 256
+    sync = torch.cuda.synchronize
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "data", "restoration")
+
+    img = rng.random((n, n), dtype=np.float32)
+    blobs = sndi.gaussian_filter(rng.random((n, n), dtype=np.float32), 8,
+                                 truncate=2.5)
+    blobs = ((blobs - blobs.min()) / (blobs.max() - blobs.min())
+             + 0.05 * rng.standard_normal((n, n))).astype(np.float32)
+    u8 = (rng.random((n, n)) * 256).astype(np.uint8)
+    # frangi's gamma of 15 expects grey levels of 0-255
+    vessels = np.ascontiguousarray(blobs[:n2, :n2] * np.float32(255))
+    noisy = np.ascontiguousarray(img[:n2, :n2])
+    psf = np.outer([1, 4, 6, 4, 1], [1, 4, 6, 4, 1]).astype(np.float32) / 256
+    blurred = ssig.convolve(blobs[:n2, :n2].astype(f64) + 0.1, psf,
+                            mode="same").astype(np.float32)
+    degraded = np.load(os.path.join(data, "degraded_input.npy"))
+    golden = np.load(os.path.join(data, "camera_wiener.npy"))
+    psf25 = np.ones((5, 5)) / 25
+    (imgc, blobsc, u8c, vesselsc, noisyc, blurredc, degradedc, psfc,
+     psf25c) = (dev(a) for a in (img, blobs, u8, vessels, noisy, blurred,
+                                 degraded, psf, psf25))
+    sync()
+    # output windows: one inside, one at the corner (the boundary modes)
+    wins = [(n // 2 - w, n // 3), (0, 0)]
+
+    def windowed(x, ref_fn, tol, dtype, margin=48, exact=False):
+        """``ref_fn`` (scipy, float64) of a crop with a margin, against
+        the result on each output window."""
+        def verify(got):
+            check(got.dtype == dtype, f"dtype {got.dtype}, want {dtype}")
+            msgs = []
+            for r0, c0 in wins:
+                a0, b0 = max(r0 - margin, 0), max(c0 - margin, 0)
+                crop = x[a0:r0 + w + margin, b0:c0 + w + margin]
+                ref = ref_fn(crop)[r0 - a0:r0 - a0 + w, c0 - b0:c0 - b0 + w]
+                part = host(got[r0:r0 + w, c0:c0 + w])
+                if exact:
+                    check(np.array_equal(part, ref), "differs from scipy")
+                    msgs.append("exact")
+                else:
+                    msgs.append(rel(part, ref, tol))
+            return "; ".join(msgs) + " (output windows vs scipy)"
+        return verify
+
+    def frangi_check(got):
+        """The port's CPU float64 frangi on crops with a margin: its
+        measures divide by eigenvalues near zero, where float32
+        Hessians (B1 sums in float32) move a few pixels by up to a
+        tenth of the maximum (a CPU run summing in float32 moved a 400^2
+        crop's by 9.5 %), so 99.9 % of the pixels are held within 1e-3
+        of max|ref| and every pixel within 0.25."""
+        check(got.dtype == torch.float64, f"dtype {got.dtype}")
+        msgs = []
+        margin = 40
+        for r0, c0 in ((n2 // 2 - w // 2, n2 // 3), (0, 0)):
+            a0, b0 = max(r0 - margin, 0), max(c0 - margin, 0)
+            ref = tfil.frangi(torch.from_numpy(vessels[
+                a0:r0 + w + margin, b0:c0 + w + margin].astype(f64)))
+            ref = ref.numpy()[r0 - a0:r0 - a0 + w, c0 - b0:c0 - b0 + w]
+            err = np.abs(host(got[r0:r0 + w, c0:c0 + w]) - ref)
+            scale = float(np.abs(ref).max()) or 1.0
+            p999 = float(np.quantile(err, 0.999)) / scale
+            worst = float(err.max()) / scale
+            check(np.isfinite(err).all() and p999 <= 1e-3 and worst <= 0.25,
+                  f"99.9th percentile {p999:.3e}, worst {worst:.3e} of "
+                  f"max|ref|")
+            msgs.append(f"99.9 % within {p999:.3e}, worst {worst:.3e} of "
+                        f"max|ref|")
+        return "; ".join(msgs) + " (port CPU float64, crops)"
+
+    def dog_ref(c):
+        c = c.astype(f64)
+        return (sndi.gaussian_filter(c, 1, mode="nearest")
+                - sndi.gaussian_filter(c, 2, mode="nearest"))
+
+    def unsharp_ref(c):
+        c = c.astype(f64)
+        return np.clip(c + (c - sndi.gaussian_filter(c, 1, mode="nearest")),
+                       0, 1)
+
+    def sobel_ref(c):
+        c = c.astype(f64)
+        h = sndi.correlate1d(sndi.correlate1d(c, [-1, 0, 1], 0),
+                             [0.25, 0.5, 0.25], 1)
+        v = sndi.correlate1d(sndi.correlate1d(c, [-1, 0, 1], 1),
+                             [0.25, 0.5, 0.25], 0)
+        return np.sqrt((h * h + v * v) / 2)
+
+    gk = tfil.gabor_kernel(0.2, device="cpu").numpy()
+
+    def gabor_check(got):
+        real, imag = got
+        m1 = windowed(img, lambda c: sndi.convolve(c.astype(f64), gk.real),
+                      1e-12, torch.float64)(real)
+        m2 = windowed(img, lambda c: sndi.convolve(c.astype(f64), gk.imag),
+                      1e-12, torch.float64)(imag)
+        return f"real {m1}; imaginary {m2}"
+
+    def window_check(got):
+        check(got.dtype == torch.float64, f"dtype {got.dtype}")
+        prof = get_window("hann", n, fftbins=False)
+        c = np.float32(n / 2 - 0.5)
+        msgs = []
+        for r0, c0 in wins:
+            rr = np.arange(r0, r0 + w, dtype=np.float32) - c
+            cc = np.arange(c0, c0 + w, dtype=np.float32) - c
+            dist = np.sqrt(rr[:, None] * rr[:, None]
+                           + cc[None, :] * cc[None, :]) + c
+            ref = sndi.map_coordinates(prof, dist[None].astype(f64),
+                                       order=1, mode="constant")
+            msgs.append(rel(got[r0:r0 + w, c0:c0 + w], ref, 1e-6))
+        return "; ".join(msgs) + " (output windows vs map_coordinates)"
+
+    def canny_check(got):
+        check(got.dtype == torch.bool, f"dtype {got.dtype}")
+        ref = _canny_reference(blobs, 2.0, 0.1, 0.2)
+        got = host(got)
+        bad = int((got != ref).sum())
+        check(bad <= 1e-5 * got.size, f"{bad} pixels differ from the "
+              f"float64 reference")
+        return (f"{int(got.sum())} edge pixels, {bad} differ from a float64 "
+                f"numpy/scipy canny (tol 1e-5 of the pixels)")
+
+    def otsu_check(got):
+        ref = tfil.threshold_otsu(torch.from_numpy(img))
+        check(got.dtype == ref.dtype and float(got) == float(ref),
+              f"{float(got)} against the port's CPU result {float(ref)}")
+        return f"{float(got):.6f}, exactly the port's CPU result"
+
+    def tv_check(got):
+        check(got.dtype == torch.float32, f"dtype {got.dtype}")
+        out = host(got)
+        mean_err = abs(float(out.astype(f64).mean()) - float(
+            noisy.astype(f64).mean()))
+        check(mean_err <= 1e-5, f"mean moved by {mean_err:.3e}")
+        tv_in, tv_out = _tv(noisy), _tv(out)
+        check(tv_out < 0.5 * tv_in, f"total variation {tv_out} of {tv_in}")
+        crop = np.ascontiguousarray(noisy[:w, :w])
+        small = trest.denoise_tv_chambolle(dev(crop), weight=0.1)
+        ref = trest.denoise_tv_chambolle(torch.from_numpy(crop), weight=0.1)
+        msg = rel(small, ref.numpy(), 1e-5)
+        return (f"mean kept within {mean_err:.1e}, total variation "
+                f"{tv_out:.4g} of {tv_in:.4g}; a {w}^2 crop {msg} vs the "
+                f"port's CPU result")
+
+    def rl_check(got):
+        check(got.dtype == torch.float32, f"dtype {got.dtype}")
+        image = blurred.astype(f64)
+        p = psf.astype(f64)
+        est = np.full(image.shape, 0.5)
+        # 'same' convolutions of an odd PSF: ndimage's, zero-extended
+        for _ in range(10):
+            conv = sndi.convolve(est, p, mode="constant")
+            est = est * sndi.convolve(image / conv, p[::-1, ::-1],
+                                      mode="constant")
+        return rel(got, np.clip(est, -1, 1), 1e-4) + (
+            " (float64 Richardson-Lucy on scipy)")
+
+    def golden_check(got):
+        diff = np.abs(host(got) - golden)
+        check(np.all(diff <= 1e-3 * np.abs(golden)),
+              "differs from camera_wiener.npy by more than rtol 1e-3")
+        err = float((diff / np.maximum(np.abs(golden), 1e-300)).max())
+        return f"{err:.3e} relative to camera_wiener.npy (rtol 1e-3)"
+
+    uw_state = {}
+
+    def uw_call():
+        out, chains = trest.unsupervised_wiener(
+            degradedc, psf25c, user_params={"rng": np.random.RandomState(5)})
+        uw_state["iterations"] = len(chains["noise"]) - 1
+        return out
+
+    def uw_check(got):
+        err = float(np.median(np.abs(host(got) - golden)))
+        check(err < 0.05, f"median error {err:.3e} against the golden")
+        return (f"median |x - camera_wiener.npy| {err:.3e} (tol 0.05), "
+                f"{uw_state['iterations']} iterations")
+
+    B1 = {"fused_separable_correlate": 1}
+    calls = []
+
+    def call(label, fn, verify, kernels=None):
+        calls.append((label, kernels or {}, fn, verify))
+
+    call(f"gaussian({n}^2 f32, sigma 2)", lambda: tfil.gaussian(imgc, 2),
+         windowed(img, lambda c: sndi.gaussian_filter(
+             c.astype(f64), 2, mode="nearest"), 2e-6, torch.float32), B1)
+    call(f"difference_of_gaussians({n}^2 f32, 1, 2)",
+         lambda: tfil.difference_of_gaussians(imgc, 1, 2),
+         windowed(img, dog_ref, 2e-6, torch.float32),
+         {"fused_separable_correlate": 2})
+    call(f"median({n}^2 f32, 3x3)", lambda: tfil.median(imgc),
+         windowed(img, lambda c: sndi.median_filter(c, 3, mode="nearest"),
+                  0, torch.float32, exact=True), {"fused_rank_filter": 1})
+    call(f"median({n}^2 u8, 3x3)", lambda: tfil.median(u8c),
+         windowed(u8, lambda c: sndi.median_filter(c, 3, mode="nearest"),
+                  0, torch.uint8, exact=True))
+    call(f"unsharp_mask({n}^2 f32, radius 1)",
+         lambda: tfil.unsharp_mask(imgc), windowed(img, unsharp_ref, 4e-6,
+                                                   torch.float32), B1)
+    call(f"window(hann, {n}^2)",
+         lambda: tfil.window("hann", (n, n), device="cuda"), window_check,
+         {"spline_gather": 1})
+    call(f"frangi({n2}^2 f32, sigmas 1-9)",
+         lambda: tfil.frangi(vesselsc), frangi_check,
+         {"fused_separable_correlate": 4})
+    call(f"canny({n}^2 f32, sigma 2)", lambda: canny(blobsc, 2.0),
+         canny_check, B1)
+    call(f"sobel({n}^2 f32 -> f64)", lambda: tfil.sobel(imgc),
+         windowed(img, sobel_ref, 1e-12, torch.float64))
+    call(f"threshold_otsu({n}^2 f32)", lambda: tfil.threshold_otsu(imgc),
+         otsu_check)
+    call(f"threshold_local({n}^2 f32, 31, f64)",
+         lambda: tfil.threshold_local(imgc, 31),
+         windowed(img, lambda c: sndi.gaussian_filter(
+             c.astype(f64), 5.0, mode="reflect"), 1e-12, torch.float64))
+    call(f"gabor({n}^2 f32, 0.2, f64)", lambda: tfil.gabor(imgc, 0.2),
+         gabor_check)
+    call(f"denoise_tv_chambolle({n2}^2 f32)",
+         lambda: trest.denoise_tv_chambolle(noisyc, weight=0.1), tv_check)
+    call(f"richardson_lucy({n2}^2 f32, 5x5, 10 iterations)",
+         lambda: trest.richardson_lucy(blurredc, psfc, 10), rl_check,
+         {"fused_dense_correlate": 20})
+    call("wiener(512^2 f64)", lambda: trest.wiener(degradedc, psf25c, 0.05),
+         golden_check)
+    call("unsupervised_wiener(512^2 f64)", uw_call, uw_check)
+
+    return _run_calls("filters path", counters, calls, torch)
 
 
 def fft_bound(numel, n, in_bytes, out_bytes, mul_bytes=0):
@@ -3746,6 +4041,12 @@ def main():
         check(tr_launches[kernel] >= 1,
               f"{kernel} not launched on the transform path")
     torch.cuda.empty_cache()
+    fi_rows, fi_launches = filters_path(all_counters, torch)
+    for kernel in ("fused_separable_correlate", "fused_rank_filter",
+                   "spline_gather", "fused_dense_correlate"):
+        check(fi_launches[kernel] >= 1,
+              f"{kernel} not launched on the filters path")
+    torch.cuda.empty_cache()
 
     # -- phase 5: times -----------------------------------------------------
     F = torch.nn.functional
@@ -4095,6 +4396,7 @@ def main():
                       "plain_torch": plain_rows + sig_plain_rows
                       + meas_rows + base_rows + sk_rows,
                       "transform_path": tr_rows,
+                      "filters_path": fi_rows,
                       "end_to_end": [fft_e2e], "conv_methods": conv_methods}))
     stencil = "cupyimg_tpu/ops/pallas_stencil.py"
     kernels = [
@@ -4205,6 +4507,13 @@ def main():
         if entry["name"] == "fused_fft":
             entry["launches_transform_path"] = (tr_launches["fft_rows"]
                                                 + tr_launches["fft_strided"])
+        # the gaussians, median, window and Richardson-Lucy: every kernel
+        # entry says how often the filters path launched it
+        entry["launches_filters_path"] = {
+            "fused_separable_morph": fi_launches["fused_separable_open_close"]
+            + fi_launches["fused_separable_morph_pair"],
+            "fused_fft": fi_launches["fft_rows"] + fi_launches["fft_strided"],
+        }.get(entry["name"], fi_launches.get(entry["name"], 0))
     line[-1]["entries"] = [
         {k: rows[lb][k] for k in ("case", "ms", "kernel_ms", "plain_ms",
                                   "bound_ms", "bound_by", "library_ms",

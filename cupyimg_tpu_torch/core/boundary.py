@@ -115,14 +115,19 @@ def map_indices_np(idx, n: int, mode: str):
 def fill_value(cval, dtype):
     """``cval`` as a number of the torch ``dtype``, converted as
     cupyimg_tpu converts it: an integer dtype truncates toward zero and
-    saturates at its range (NaN gives 0); other dtypes cast."""
+    saturates at its range (NaN gives 0; an integer ``cval`` stays
+    exact); other dtypes cast."""
     if dtype.is_floating_point or dtype.is_complex or dtype == torch.bool:
         return torch.tensor(cval, dtype=dtype).item()
-    cval = float(cval)
-    if np.isnan(cval):
-        return 0
+    if isinstance(cval, (int, np.integer)):
+        cval = int(cval)
+    else:
+        cval = float(cval)
+        if np.isnan(cval):
+            return 0
+        cval = np.trunc(cval)
     info = torch.iinfo(dtype)
-    return int(min(max(np.trunc(cval), info.min), info.max))
+    return int(min(max(cval, info.min), info.max))
 
 
 def pad(x, pad_width, mode: str, cval=0.0):

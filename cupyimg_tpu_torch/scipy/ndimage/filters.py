@@ -812,6 +812,25 @@ def _min_or_max_1d(x, size, axis, mode, cval, origin, is_min):
     return stencil.reduce_window(x, (taps, pad_width), mode, cval, reducer)
 
 
+# torch has no minimum, maximum or sort of these types
+_UNSIGNED_WIDE = (torch.uint16, torch.uint32, torch.uint64)
+_SIGN_BIT = -2**63
+
+
+def _via_signed(filter_fn, input, output, cval):
+    """``filter_fn(x, cval)`` of a uint16/32/64 ``input`` computed in a
+    signed type that keeps the order of its values, cast to ``output``'s
+    dtype (default the input's). uint16 and uint32 widen; uint64 flips
+    its sign bit into int64 (``v - 2**63``), and so does ``cval``."""
+    out_dtype = dtypes.to_torch(dtypes.resolve_output_dtype(output,
+                                                            input.dtype))
+    if input.dtype != torch.uint64:
+        return filter_fn(dtypes.widen_unsigned(input), cval).to(out_dtype)
+    res = filter_fn(input.view(torch.int64) ^ _SIGN_BIT,
+                    boundary.fill_value(cval, torch.uint64) + _SIGN_BIT)
+    return (res ^ _SIGN_BIT).view(torch.uint64).to(out_dtype)
+
+
 def _min_or_max_filter(
     input, size, footprint, structure, output, mode, cval, origin, is_min
 ):
@@ -821,6 +840,11 @@ def _min_or_max_filter(
     ``x - structure`` (minimum) or ``x + structure`` (maximum).
     """
     input = util.as_tensor(input)
+    if input.dtype in _UNSIGNED_WIDE and structure is None:
+        return _via_signed(
+            lambda x, c: _min_or_max_filter(x, size, footprint, None, None,
+                                            mode, c, origin, is_min),
+            input, output, cval)
     if structure is None:
         footprint, sizes = _get_footprint(input, size, footprint)
     else:
@@ -972,6 +996,11 @@ def _rank_filter(input, rank_fn, size, footprint, output, mode, cval, origin):
     over shifted slices; larger footprints sort the stacked windows.
     """
     input = util.as_tensor(input)
+    if input.dtype in _UNSIGNED_WIDE:
+        return _via_signed(
+            lambda x, c: _rank_filter(x, rank_fn, size, footprint, None,
+                                      mode, c, origin),
+            input, output, cval)
     footprint, sizes = _get_footprint(input, size, footprint,
                                       allow_separable=False)
     if footprint is None:

@@ -6,10 +6,13 @@ dtype conversions, views, ``invert``, ``random_noise``, ``map_array``,
 ``label2rgb``, ``deltaE_*``), ``skimage.exposure`` (histograms, their
 equalization and matching, the intensity corrections),
 ``skimage.transform`` (the geometric transforms, the warps, the integral
-images, the pyramids), ``skimage.feature`` (all but ``canny``: the
-corner and Hessian features, ``peak_local_max``, ``match_template``,
-``daisy``), ``skimage.metrics`` and the shared helpers of
-``skimage._shared``.  The ``img_as_*`` conversions and
+images, the pyramids), ``skimage.feature`` (``canny``, the corner and
+Hessian features, ``peak_local_max``, ``match_template``, ``daisy``),
+``skimage.filters`` (the edge filters, the gaussians, median, unsharp
+masking, gabor, windows, the LPI filters, the thresholds, the ridge
+filters), ``skimage.restoration`` (the deconvolutions, total-variation
+denoising, denoiser calibration, ``uft``), ``skimage.metrics`` and the
+shared helpers of ``skimage._shared``.  The ``img_as_*`` conversions and
 ``dtype_limits`` are re-exported here, as skimage does."""
 
 from .util.dtype import (  # noqa: F401,E402

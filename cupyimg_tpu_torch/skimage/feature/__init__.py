@@ -1,9 +1,9 @@
-"""skimage.feature on torch tensors: the corner and Hessian features,
-``peak_local_max``, ``match_template`` and ``daisy``.  ``canny`` and the
+"""skimage.feature on torch tensors: ``canny``, the corner and Hessian
+features, ``peak_local_max``, ``match_template`` and ``daisy``.  The
 registration aliases (``register_translation``,
-``masked_register_translation``) come with ``skimage.filters`` and
-``skimage.registration``."""
+``masked_register_translation``) come with ``skimage.registration``."""
 
+from ._canny import canny
 from ._daisy import daisy
 from .peak import peak_local_max
 from .corner import (
@@ -23,6 +23,7 @@ from .corner import (
 from .template import match_template
 
 __all__ = [
+    "canny",
     "daisy",
     "peak_local_max",
     "structure_tensor",
