@@ -131,6 +131,20 @@ Phases, each fatal on failure (a traceback and a non-zero exit):
    none), each result against scipy/numpy on windows, a float64
    numpy/scipy canny and Richardson-Lucy, the port's CPU result on crops
    (frangi, the TV denoiser) or the restoration goldens, each timed;
+   then the registration path, its counts set to 0 before it, with
+   matmul TF32 allowed: phase_cross_correlation on 4096^2 (integer and
+   subpixel shifts, Fourier-space spectra) and masked on 1024^2, the
+   TV-L1 and iLK flows of the registration suite's sine flow on 2048^2
+   (TV-L1 with its median prefilter on 1024^2; both on 256^2 against the
+   port's CPU result), find_boundaries in its four modes,
+   relabel_sequential, join_segmentations and clear_border on a 4096^2
+   segmentation of ~1000 regions, mark_boundaries (thick, subpixel) on
+   2048^2 RGB, the morphological snakes on 1024^2, edge_enhance_pipeline
+   on 256^3, richardson_lucy_step on 2048^2 and convolve_separable on
+   4096^2; each call's launches of B1, B3 and the gather held to its
+   plan (the correlations, label operations and level sets launch none),
+   each result against its known shift or flow (mean error under half a
+   pixel), numpy/scipy or the port's CPU result, each timed;
 5. times from CUDA events (median over up to 100 launches after a
    warm-up), printed as one ``{"cases": ...}`` and one ``{"kernels":
    ...}`` JSON line, with each kernel's bound and a PyTorch yardstick
@@ -3589,6 +3603,526 @@ def filters_path(counters, torch):
     return _run_calls("filters path", counters, calls, torch)
 
 
+def _sine_flow(shape, rng, max_motion=4.5, npics=5):
+    """The registration suite's pair: white noise and the same noise
+    warped by a sine flow along the first axis (``max_motion`` pixels,
+    ``npics`` half-periods); the warp runs on the card before the path's
+    counts are set to 0.  Returns (image0, image1, flow) as CUDA
+    tensors."""
+    import torch
+
+    from cupyimg_tpu_torch.skimage.transform import warp
+
+    image0 = dev(rng.standard_normal(shape, dtype=np.float32))
+    grid = torch.stack(torch.meshgrid(
+        *[torch.arange(n, dtype=torch.float32, device=image0.device)
+          for n in shape], indexing="ij"))
+    flow = torch.zeros_like(grid)
+    flow[0] = max_motion * torch.sin(grid[0] / grid[0].max() * npics * np.pi)
+    return image0, warp(image0, grid - flow, mode="nearest"), flow
+
+
+def _segments(shape, cells, phase, rng):
+    """A segmentation of about cells^2 regions: a grid of ``cells`` cells
+    an axis bent by sines, each cell a random label of 1..cells^2 (a
+    tenth of them 0, the background)."""
+    n = cells * cells
+    labels = rng.permutation(n).astype(np.int32) + 1
+    labels[rng.random(n) < 0.1] = 0
+    rr = np.arange(shape[0], dtype=np.float32)[:, None]
+    cc = np.arange(shape[1], dtype=np.float32)[None, :]
+    r = rr + 0.3 * shape[0] / cells * np.sin(cc / 97.0 + phase)
+    c = cc + 0.3 * shape[1] / cells * np.cos(rr / 83.0 + phase)
+    i = np.clip((r * cells / shape[0]).astype(np.int64), 0, cells - 1)
+    j = np.clip((c * cells / shape[1]).astype(np.int64), 0, cells - 1)
+    return labels[i * cells + j]
+
+
+def _relabel_reference(lab, offset=1):
+    """skimage's relabel_sequential by np.unique and searchsorted."""
+    vals = np.unique(lab)
+    out = np.arange(offset, offset + len(vals))
+    if vals[0] == 0:
+        out = np.concatenate([[0], out[:-1]])
+    return out[np.searchsorted(vals, lab)]
+
+
+def _boundaries_reference(lab, mode):
+    """skimage's thick, inner and outer boundaries of int32 labels on
+    scipy's grey dilation and erosion."""
+    import scipy.ndimage as sndi
+
+    cross = sndi.generate_binary_structure(2, 1)
+    b = sndi.grey_dilation(lab, footprint=cross) != sndi.grey_erosion(
+        lab, footprint=cross)
+    if mode == "inner":
+        b &= lab != 0
+    elif mode == "outer":
+        bg = lab == 0
+        full = np.ones((3, 3), bool)
+        inverted = np.where(bg, np.iinfo(lab.dtype).max, lab)
+        b &= bg | ((sndi.grey_dilation(lab, footprint=full)
+                    != sndi.grey_erosion(inverted, footprint=full)) & ~bg)
+    return b
+
+
+def _subpixel_reference(lab, r0, c0, w):
+    """skimage's subpixel boundaries of ``lab`` on the expanded window of
+    ``w`` labels from ``(r0, c0)``, by scipy: an interstitial pixel is a
+    boundary when the minimum and the maximum of the labels in its 3x3
+    window of the expanded grid (zero outside it) differ."""
+    import scipy.ndimage as sndi
+
+    a, b = max(r0 - 1, 0), max(c0 - 1, 0)
+    crop = lab[a:r0 + w + 1, b:c0 + w + 1].astype(np.int32)
+    shape = tuple(2 * s - 1 for s in crop.shape)
+    # int32 bounds: scipy's minimum_filter turns int64's maximum into
+    # its minimum
+    lo = np.full(shape, np.iinfo(np.int32).max, np.int32)
+    hi = np.full(shape, np.iinfo(np.int32).min, np.int32)
+    lo[::2, ::2] = hi[::2, ::2] = crop
+    edges = np.ones(shape, bool)
+    edges[::2, ::2] = False
+    ref = edges & (sndi.minimum_filter(lo, 3, mode="constant")
+                   != sndi.maximum_filter(hi, 3, mode="constant"))
+    return ref[2 * (r0 - a):2 * (r0 - a + w) - 1,
+               2 * (c0 - b):2 * (c0 - b + w) - 1]
+
+
+def _edge_reference(x, sigma=1.5, amount=0.7):
+    """tests/test_models.py's scipy composition of edge_enhance_pipeline,
+    in float64."""
+    import scipy.ndimage as sndi
+
+    x = x.astype(np.float64)
+    sm = sndi.gaussian_filter(x, sigma)
+    grad = sum(sndi.sobel(sm, axis=ax) ** 2 for ax in range(x.ndim))
+    return (1 + amount) * x - amount * sm + 0.1 * np.sqrt(grad)
+
+
+def device_busy(fn, torch):
+    """(wall_ms, device_ms, kernels) of one call of ``fn`` after one
+    warm-up: CUDA events around the call, and the summed time and count
+    of the CUDA kernels that torch.profiler recorded in it (0 where it
+    recorded none: printed as not measured)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+    kernels = [ev for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA]
+    return (start.elapsed_time(end),
+            sum(ev.self_device_time_total for ev in kernels) / 1e3,
+            sum(ev.count for ev in kernels))
+
+
+def registration_path(counters, torch):
+    """Phase 4, registration path: ``skimage.registration``,
+    ``skimage.segmentation``, the pipelines and ``convolve_separable`` at
+    full size, the counts set to 0 just before it and read just after,
+    matmul TF32 allowed.  phase_cross_correlation on 4096^2 float32 (an
+    integer shift, a subpixel shift upsampled 20 times, Fourier-space
+    input: torch.fft and a complex128 upsampled DFT, no launch) and the
+    masked one on 1024^2 (complex128 FFTs); optical_flow_tvl1 and
+    optical_flow_ilk (window, gaussian) on 2048^2 float32 with the
+    registration suite's sine flow, TV-L1 with ``tol=0`` so that every
+    level runs its five warps (seven levels: six reduces an image, each
+    a B1 and a gather launch; six flow resizes on the gather; one gather
+    launch a warp, iLK's five window sums a warp on B1), TV-L1 on 1024^2
+    with ``prefilter=True`` (one B3 launch a warp), and both solvers on
+    256^2 against the port's CPU result (beside the CPU's own spread
+    when the second image moves by one unit in the last place); the
+    segmentation calls on a
+    4096^2 int32 label image of about 1000 regions (plain torch), exactly
+    against numpy/scipy; mark_boundaries on 2048^2 RGB float32 (thick:
+    plain; subpixel: a B1 prefilter and a gather launch a channel);
+    morphological_chan_vese (20 iterations, float64) and
+    morphological_geodesic_active_contour on inverse_gaussian_gradient
+    of a float32 image (B1, one launch an axis) on 1024^2, against the
+    port's CPU result; edge_enhance_pipeline on 256^3 float32 (1 + 3
+    B1 launches) against tests/test_models.py's scipy composition on
+    windows; richardson_lucy_step on 2048^2 (torch.fft) against numpy;
+    convolve_separable on 4096^2 float32 with two filters under
+    ``dtype_mode="float"`` (a B1 launch an axis) against scipy.  The
+    2048^2 TV-L1 call is then profiled once (``device_busy``: the card's
+    busy time and idle share).  Returns the calls' rows and the path's
+    launches."""
+    import scipy.ndimage as sndi
+
+    import cupyimg_tpu_torch
+    from cupyimg_tpu_torch import models
+    from cupyimg_tpu_torch.skimage import registration as treg
+    from cupyimg_tpu_torch.skimage import segmentation as tseg
+
+    t_path = time.perf_counter()
+    n, n2, n1, n0 = 4096, 2048, 1024, 256
+    rng = np.random.default_rng(15)
+    f64 = np.float64
+    device = dev(np.zeros(1)).device
+    sync = torch.cuda.synchronize
+
+    # registration: a smooth 4096^2 image and its shifted copies
+    smooth = sndi.zoom(rng.random((n // 16, n // 16), dtype=np.float32), 16,
+                       order=3)[:n, :n] + 0.05 * rng.random((n, n),
+                                                            dtype=np.float32)
+    smoothc = dev(smooth)
+    shift = (-37.0, 211.0)
+    sub = (13.35, -7.6)
+    rolled = torch.roll(smoothc, (37, -211), (0, 1))
+    fr = [torch.fft.fftfreq(s, device=device, dtype=torch.float64)
+          for s in (n, n)]
+    ramp = torch.exp(-2j * np.pi * (sub[0] * fr[0][:, None]
+                                    + sub[1] * fr[1][None, :]))
+    spectrum = torch.fft.fftn(smoothc.double())
+    rolled_spectrum = torch.fft.fftn(rolled.double())
+    sub_spectrum = spectrum * ramp
+    subpixel = torch.fft.ifftn(sub_spectrum).real.float().contiguous()
+    del ramp
+    # masked: 1024^2 crops of the pair, each cut by its own mask
+    fixed = smoothc[:n1, :n1].contiguous()
+    moving = torch.roll(smoothc, (19, -23), (0, 1))[:n1, :n1].contiguous()
+    fmask = torch.ones((n1, n1), dtype=torch.bool, device=device)
+    fmask[:n1 // 3, :n1 // 5] = False
+    mmask = torch.ones_like(fmask)
+    mmask[n1 * 2 // 3:, n1 * 5 // 8:] = False
+    # optical flow pairs
+    i0, i1, gt = _sine_flow((n2, n2), rng)
+    p0, p1, pgt = _sine_flow((n1, n1), rng)
+    s0, s1, sgt = _sine_flow((n0, n0), rng)
+    # segmentation: two 4096^2 segmentations of ~1000 and ~1600 regions
+    seg1 = _segments((n, n), n // 128, 0.0, rng)
+    seg2 = _segments((n, n), n // 100, 1.3, rng)
+    seg1c, seg2c = dev(seg1), dev(seg2)
+    rgb = rng.random((n2, n2, 3), dtype=np.float32)
+    rgbc = dev(rgb)
+    lab2 = np.ascontiguousarray(seg1[:n2, :n2])
+    lab2c = dev(lab2)
+    # snakes: a smooth 1024^2 float64 image, and a float32 one's gradient
+    blobs = sndi.zoom(rng.random((n1 // 16, n1 // 16)), 16, order=3)
+    blobsc = dev(blobs)
+    blobs32c = dev(blobs.astype(np.float32))
+    vol = rng.random((n0,) * 3, dtype=np.float32)
+    volc = dev(vol)
+    est = rng.random((n2, n2), dtype=np.float32) + 0.5
+    image = rng.random((n2, n2), dtype=np.float32) + 0.5
+    psf = np.zeros((n2, n2), np.float32)
+    psf[:5, :5] = 1 / 25
+    psf = np.roll(psf, (-2, -2), (0, 1))
+    psf_fft = np.fft.rfftn(psf)
+    estc, imagec, psfc = dev(est), dev(image), dev(psf_fft.astype(
+        np.complex64))
+    psf_conjc = psfc.conj().contiguous()
+    conv_x = rng.random((n, n), dtype=np.float32)
+    conv_xc = dev(conv_x)
+    taps = [np.array([1.0, 4.0, 6.0, 4.0, 1.0]) / 16,
+            np.array([-1.0, 0.0, 1.0])]
+    sync()
+
+    def pcc_exact(want):
+        def verify(got):
+            got = host(got if isinstance(got, torch.Tensor) else got[0])
+            check(np.array_equal(got, want), f"shifts {got}, want {want}")
+            return f"shifts {got.tolist()} exactly"
+        return verify
+
+    def pcc_subpixel(got):
+        shifts, error, phase = host(got)
+        want = -np.asarray(sub)
+        err = float(np.abs(shifts - want).max())
+        check(err <= 1 / 20, f"shifts {shifts}, want {want} within 0.05")
+        # the port's CPU result: a product on the tensor cores would move
+        # the error^2 and the phase by ~1e-3
+        ref = treg.phase_cross_correlation(
+            torch.from_numpy(smooth), subpixel.cpu(), upsample_factor=20)
+        check(np.array_equal(shifts, ref[0].numpy()),
+              f"shifts {shifts} differ from the CPU result {ref[0]}")
+        d_err = abs(float(error) ** 2 - float(ref[1]) ** 2)
+        d_phase = abs(float(phase) - float(ref[2]))
+        check(d_err <= 1e-5 and d_phase <= 1e-5,
+              f"error^2 {d_err:.2e} / phase {d_phase:.2e} off the CPU "
+              "result (tol 1e-5)")
+        return (f"shifts {shifts.tolist()} within {err:.3f} of the shift; "
+                f"error^2 {d_err:.1e}, phase {d_phase:.1e} from the CPU "
+                "result")
+
+    def flow_check(truth):
+        def verify(got):
+            check(got.dtype == torch.float32, f"dtype {got.dtype}")
+            err = float((got - truth).abs().mean())
+            check(err < 0.5, f"mean |flow - truth| {err:.3f} (tol 0.5)")
+            return f"mean |flow - truth| {err:.4f} px (tol 0.5)"
+        return verify
+
+    def spread(d):
+        """(mean, 99.9th percentile, worst) of |flow differences|."""
+        return (float(d.mean()), float(torch.quantile(d.reshape(-1), 0.999)),
+                float(d.max()))
+
+    def flow_cpu(fn):
+        """The 256^2 flow against the port's CPU result of the same call.
+        TV-L1 on white noise amplifies rounding at a few unstable pixels:
+        the CPU result moves as far from itself when the second image
+        moves by about one unit in the last place at random pixels
+        (printed beside it), so float32 sums in another order on the card
+        are held in the mean (1e-3 px), the 99.9th percentile (0.05 px)
+        and the worst pixel (0.5 px)."""
+        def verify(got):
+            a, b = s0.cpu(), s1.cpu()
+            ref = fn(a, b)
+            ulp = np.random.default_rng(1).choice([-1.0, 0.0, 1.0], b.shape)
+            ulp = torch.from_numpy(ulp.astype(np.float32)) * np.finfo(
+                np.float32).eps
+            own = spread((fn(a, b * (1 + ulp)) - ref).abs())
+            mean, p999, worst = spread((got.cpu() - ref).abs())
+            check(mean <= 1e-3 and p999 <= 0.05 and worst <= 0.5,
+                  f"mean {mean:.2e}, 99.9th percentile {p999:.2e}, worst "
+                  f"{worst:.2e} px from the CPU result (tol 1e-3, 0.05, "
+                  "0.5)")
+            err = float((got - sgt).abs().mean())
+            check(err < 0.5, f"mean |flow - truth| {err:.3f} (tol 0.5)")
+            return (f"mean {mean:.2e} px, 99.9th percentile {p999:.2e}, "
+                    f"worst {worst:.2e} px from the port's CPU result (the "
+                    f"CPU's own one-ulp spread: {own[0]:.2e}, {own[1]:.2e}, "
+                    f"{own[2]:.2e}); mean |flow - truth| {err:.4f}")
+        return verify
+
+    def exact_np(ref_fn, dtype=None):
+        def verify(got):
+            ref = ref_fn()
+            if dtype is not None:
+                check(got.dtype == dtype, f"dtype {got.dtype}, want {dtype}")
+            check(np.array_equal(host(got), ref), "differs from numpy/scipy")
+            return "exact (numpy/scipy)"
+        return verify
+
+    def joined():
+        r1, r2 = _relabel_reference(seg1), _relabel_reference(seg2)
+        return _relabel_reference((r2.max() + 1) * r1.astype(np.int64) + r2)
+
+    def cleared():
+        border = np.ones(seg1.shape, bool)
+        border[1:-1, 1:-1] = False
+        touching = np.setdiff1d(np.unique(seg1[border]), [0])
+        return np.where(np.isin(seg1, touching), 0, seg1)
+
+    def subpixel_check(got):
+        check(got.shape == (2 * n - 1, 2 * n - 1), f"shape {got.shape}")
+        w = min(256, n // 4)
+        for r0, c0 in ((0, 0), (n * 3 // 8, n * 9 // 16), (n - w, 7)):
+            part = host(got[2 * r0:2 * (r0 + w) - 1, 2 * c0:2 * (c0 + w) - 1])
+            check(np.array_equal(part, _subpixel_reference(seg1, r0, c0, w)),
+                  f"window {(r0, c0)} differs from scipy")
+        return "exact on three 511^2 windows (scipy min/max filters)"
+
+    b2 = _boundaries_reference(lab2, "thick")
+
+    def marked_thick(got):
+        ref = np.where(b2[..., None], np.float32([1, 1, 0]), rgb)
+        check(np.array_equal(host(got), ref), "differs from numpy")
+        return "exact (numpy)"
+
+    def marked_subpixel(got):
+        check(got.dtype == torch.float32 and got.shape == (2 * n2 - 1,
+                                                           2 * n2 - 1, 3),
+              f"{got.dtype} {tuple(got.shape)}")
+        coefs = [sndi.spline_filter(rgb[..., ch].astype(f64), 3,
+                                    mode="reflect") for ch in range(3)]
+        errs, w = [], min(128, n2 // 4)
+        for r0, c0 in ((0, 0), (n2 // 2, n2 // 4)):
+            part = host(got[2 * r0:2 * (r0 + w) - 1, 2 * c0:2 * (c0 + w) - 1])
+            bnd = _subpixel_reference(lab2, r0, c0, w)
+            check(np.array_equal(part[bnd], np.tile(
+                np.float32([1, 1, 0]), (int(bnd.sum()), 1))),
+                "a boundary pixel is not the colour")
+            # the zoom by (2 * 2048 - 1) / 2048 samples at half pixels
+            rr, cc = np.mgrid[2 * r0:2 * (r0 + w) - 1,
+                              2 * c0:2 * (c0 + w) - 1].astype(f64) * 0.5
+            for ch in range(3):
+                ref = sndi.map_coordinates(coefs[ch], [rr, cc], order=3,
+                                           mode="reflect", prefilter=False)
+                errs.append(float(np.abs(part[..., ch] - ref)[~bnd].max()))
+        tol = coef_tol(3, 2)
+        check(max(errs) <= tol, f"{max(errs):.3e} off scipy's zoom (tol "
+              f"{tol:.1e})")
+        return (f"boundaries exactly the colour; the zoom within "
+                f"{max(errs):.2e} of scipy (tol {tol:.1e}) on two output "
+                "windows")
+
+    def level_set_cpu(fn, *inputs):
+        def verify(got):
+            check(got.dtype == torch.int8, f"dtype {got.dtype}")
+            ref = fn(*[x.cpu() for x in inputs])
+            flips = int((got.cpu() != ref).sum())
+            check(flips == 0, f"{flips} pixels differ from the CPU result")
+            return (f"exactly the port's CPU result ({int(got.sum())} "
+                    "pixels inside)")
+        return verify
+
+    def edge_check(got):
+        check(got.dtype == torch.float32, f"dtype {got.dtype}")
+        m, w = 8, min(48, n0 // 4)
+        msgs = []
+        for c in ((0, 0, 0), (n0 * 3 // 8, n0 // 8, n0 * 5 // 8)):
+            lo = [max(v - m, 0) for v in c]
+            crop = vol[tuple(slice(a, v + w + m) for a, v in zip(lo, c))]
+            ref = _edge_reference(crop)[tuple(
+                slice(v - a, v - a + w) for a, v in zip(lo, c))]
+            part = host(got[tuple(slice(v, v + w) for v in c)])
+            check(np.allclose(part, ref, rtol=2e-4, atol=2e-4),
+                  f"window {c} off the scipy composition")
+            msgs.append(float(np.abs(part - ref).max()))
+        return (f"windows within {max(msgs):.2e} of tests/test_models.py's "
+                "scipy composition (rtol, atol 2e-4)")
+
+    def rl_check(got):
+        e, i = est.astype(f64), image.astype(f64)
+        pf = psf_fft
+        conv = np.fft.irfft2(np.fft.rfft2(e) * pf, s=e.shape)
+        ref = e * np.fft.irfft2(np.fft.rfft2(i / (conv + 1e-12))
+                                * np.conj(pf), s=e.shape)
+        return rel(got, ref, 1e-5) + " (numpy.fft, float64)"
+
+    def conv_check(got):
+        check(got.dtype == torch.float32, f"dtype {got.dtype}")
+        ref = sndi.convolve1d(sndi.convolve1d(conv_x.astype(f64), taps[0], 0),
+                              taps[1], 1)
+        return rel(got, ref, 2e-6) + " (scipy, float64)"
+
+    B1, G, B3 = ("fused_separable_correlate", "spline_gather",
+                 "fused_rank_filter")
+
+    def flow_plan(size, warps, sums=0, median=False):
+        """The launches of a coarse-to-fine solve of a ``size``^2 pair:
+        a B1 and a gather launch a reduce (one an image a level below
+        the finest), a gather launch a flow resize, a gather launch a
+        warp, ``sums`` B1 launches a warp and, with ``median``, a B3
+        launch a warp.  2048^2 has 7 levels (2048..32), 1024^2 6, 256^2
+        4."""
+        levels, s = 1, size
+        while levels < 10 and s > 32:
+            s, levels = -(-s // 2), levels + 1
+        plan = {B1: 2 * (levels - 1) + sums * warps * levels,
+                G: 3 * (levels - 1) + warps * levels}
+        if median:
+            plan[B3] = warps * levels
+        return plan
+
+    calls = []
+
+    def call(label, fn, verify, kernels=None):
+        calls.append((label, kernels or {}, fn, verify))
+
+    call(f"phase_cross_correlation({n}^2 f32, integer shift)",
+         lambda: treg.phase_cross_correlation(smoothc, rolled),
+         pcc_exact(np.asarray(shift)))
+    call(f"phase_cross_correlation({n}^2 f32, subpixel, upsample 20)",
+         lambda: treg.phase_cross_correlation(smoothc, subpixel,
+                                              upsample_factor=20),
+         pcc_subpixel)
+    call(f"phase_cross_correlation({n}^2 c128 spectra, space='fourier')",
+         lambda: treg.phase_cross_correlation(
+             spectrum, rolled_spectrum, space="fourier", return_error=False),
+         pcc_exact(np.asarray(shift)))
+    call(f"phase_cross_correlation({n1}^2 f32, masked, f64)",
+         lambda: treg.phase_cross_correlation(
+             fixed, moving, reference_mask=fmask, moving_mask=mmask),
+         pcc_exact(np.asarray([-19.0, 23.0])))
+    tvl1_label = f"optical_flow_tvl1({n2}^2 f32, attachment 5, tol 0)"
+    call(tvl1_label,
+         lambda: treg.optical_flow_tvl1(i0, i1, attachment=5, tol=0),
+         flow_check(gt), flow_plan(n2, 5))
+    call(f"optical_flow_tvl1({n1}^2 f32, tol 0, prefilter)",
+         lambda: treg.optical_flow_tvl1(p0, p1, attachment=5, tol=0,
+                                        prefilter=True),
+         flow_check(pgt), flow_plan(n1, 5, median=True))
+    call(f"optical_flow_ilk({n2}^2 f32, radius 7)",
+         lambda: treg.optical_flow_ilk(i0, i1), flow_check(gt),
+         flow_plan(n2, 10, sums=5))
+    call(f"optical_flow_ilk({n2}^2 f32, gaussian)",
+         lambda: treg.optical_flow_ilk(i0, i1, gaussian=True),
+         flow_check(gt), flow_plan(n2, 10, sums=5))
+    tv256 = dict(attachment=5, tol=0)
+    call(f"optical_flow_tvl1({n0}^2 f32, tol 0)",
+         lambda: treg.optical_flow_tvl1(s0, s1, **tv256),
+         flow_cpu(lambda a, b: treg.optical_flow_tvl1(a, b, **tv256)),
+         flow_plan(n0, 5))
+    call(f"optical_flow_ilk({n0}^2 f32)",
+         lambda: treg.optical_flow_ilk(s0, s1),
+         flow_cpu(treg.optical_flow_ilk), flow_plan(n0, 10, sums=5))
+    for mode in ("thick", "inner", "outer"):
+        call(f"find_boundaries({n}^2 i32, {mode})",
+             lambda mode=mode: tseg.find_boundaries(seg1c, mode=mode),
+             exact_np(lambda mode=mode: _boundaries_reference(seg1, mode)))
+    call(f"find_boundaries({n}^2 i32, subpixel)",
+         lambda: tseg.find_boundaries(seg1c, mode="subpixel"),
+         subpixel_check)
+    call(f"relabel_sequential({n}^2 i32)",
+         lambda: tseg.relabel_sequential(seg1c)[0],
+         exact_np(lambda: _relabel_reference(seg1).astype(np.int32),
+                  torch.int32))
+    call(f"join_segmentations({n}^2 i32, ~1000 and ~1600 regions)",
+         lambda: tseg.join_segmentations(seg1c, seg2c),
+         exact_np(lambda: joined().astype(np.int32), torch.int32))
+    call(f"clear_border({n}^2 i32)", lambda: tseg.clear_border(seg1c),
+         exact_np(cleared, torch.int32))
+    call(f"mark_boundaries({n2}^2 RGB f32, thick)",
+         lambda: tseg.mark_boundaries(rgbc, lab2c, mode="thick"),
+         marked_thick)
+    call(f"mark_boundaries({n2}^2 RGB f32, subpixel)",
+         lambda: tseg.mark_boundaries(rgbc, lab2c, mode="subpixel"),
+         marked_subpixel, {B1: 3, G: 3})
+    cv = dict(iterations=20, init_level_set="checkerboard")
+    call(f"morphological_chan_vese({n1}^2 f64, 20 iterations)",
+         lambda: tseg.morphological_chan_vese(blobsc, **cv),
+         level_set_cpu(lambda x: tseg.morphological_chan_vese(x, **cv),
+                       blobsc))
+    igg = {}
+
+    def gac(g):
+        return tseg.morphological_geodesic_active_contour(
+            g, 20, init_level_set="disk", balloon=-1)
+
+    def igg_then_gac():
+        igg["g"] = tseg.inverse_gaussian_gradient(blobs32c, sigma=2.0)
+        return gac(igg["g"])
+
+    call(f"inverse_gaussian_gradient + geodesic_active_contour({n1}^2 f32, "
+         "20 iterations)", igg_then_gac,
+         lambda got: level_set_cpu(gac, igg["g"])(got), {B1: 2})
+    call(f"edge_enhance_pipeline({n0}^3 f32)",
+         lambda: models.edge_enhance_pipeline(volc), edge_check, {B1: 4})
+    call(f"richardson_lucy_step({n2}^2 f32)",
+         lambda: models.richardson_lucy_step(imagec, estc, psfc, psf_conjc),
+         rl_check)
+    call(f"convolve_separable({n}^2 f32, 5 and 3 taps, dtype_mode float)",
+         lambda: cupyimg_tpu_torch.convolve_separable(conv_xc, taps,
+                                                      dtype_mode="float"),
+         conv_check, {B1: 2})
+
+    rows, launches = _run_calls("registration path", counters, calls, torch)
+    # the most host-bound call: how much of it the card is busy
+    t_prof = time.perf_counter()
+    row = next(r for r in rows if r["case"] == tvl1_label)
+    wall, busy, count = device_busy(
+        next(c[2] for c in calls if c[0] == tvl1_label), torch)
+    row.update(profiled_ms=wall, device_ms=busy, kernels=count,
+               idle_share=1 - busy / wall if busy else None)
+    print(f"registration path {row['case']}: {count} kernels, device "
+          f"{busy:.2f} ms of {wall:.2f} ms (idle share "
+          + (f"{1 - busy / wall:.3f}" if busy else "not measured")
+          + f"), profiled in {time.perf_counter() - t_prof:.1f} s")
+    print(f"registration path: {time.perf_counter() - t_path:.1f} s")
+    return rows, launches
+
+
 def fft_bound(numel, n, in_bytes, out_bytes, mul_bytes=0):
     """(bound_ms, bound_by) of one FFT pass over ``numel`` points along
     an axis of ``n``: one read of each operand and one write at
@@ -4047,6 +4581,12 @@ def main():
         check(fi_launches[kernel] >= 1,
               f"{kernel} not launched on the filters path")
     torch.cuda.empty_cache()
+    rg_rows, rg_launches = registration_path(all_counters, torch)
+    for kernel in ("fused_separable_correlate", "fused_rank_filter",
+                   "spline_gather"):
+        check(rg_launches[kernel] >= 1,
+              f"{kernel} not launched on the registration path")
+    torch.cuda.empty_cache()
 
     # -- phase 5: times -----------------------------------------------------
     F = torch.nn.functional
@@ -4397,6 +4937,7 @@ def main():
                       + meas_rows + base_rows + sk_rows,
                       "transform_path": tr_rows,
                       "filters_path": fi_rows,
+                      "registration_path": rg_rows,
                       "end_to_end": [fft_e2e], "conv_methods": conv_methods}))
     stencil = "cupyimg_tpu/ops/pallas_stencil.py"
     kernels = [
@@ -4514,6 +5055,13 @@ def main():
             + fi_launches["fused_separable_morph_pair"],
             "fused_fft": fi_launches["fft_rows"] + fi_launches["fft_strided"],
         }.get(entry["name"], fi_launches.get(entry["name"], 0))
+        # the flows' warps, pyramids, window sums and medians, the
+        # gaussian gradient, the pipelines and convolve_separable
+        entry["launches_registration_path"] = {
+            "fused_separable_morph": rg_launches["fused_separable_open_close"]
+            + rg_launches["fused_separable_morph_pair"],
+            "fused_fft": rg_launches["fft_rows"] + rg_launches["fft_strided"],
+        }.get(entry["name"], rg_launches.get(entry["name"], 0))
     line[-1]["entries"] = [
         {k: rows[lb][k] for k in ("case", "ms", "kernel_ms", "plain_ms",
                                   "bound_ms", "bound_by", "library_ms",

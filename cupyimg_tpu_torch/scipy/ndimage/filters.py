@@ -13,6 +13,10 @@ plain torch: ``ops/stencil.py``, ``ops/sorting_networks.py``):
 - the separable filters, float32 2-D/3-D: ONE launch of the fused
   separable kernel (``ops/fused_separable.py``), whatever ``dtype_mode``
   says;
+- ``correlate1d``/``convolve1d`` accumulating in float32
+  (``dtype_mode="float"``; the default ``"ndimage"`` accumulates in
+  float64 on the plain path), 2-D/3-D, at most 64 real taps: ONE launch
+  of the fused separable kernel;
 - ``correlate``/``convolve`` accumulating in float32
   (``dtype_mode="float"``) with weights the dense kernel admits: ONE
   launch of the dense kernel (``ops/fused_dense.py``);
@@ -235,7 +239,10 @@ def _correlate1d(
     crop=True,
 ):
     """1-d correlate/convolve along an axis; ``crop=False`` gives the
-    'full' correlation, ``n + size - 1`` samples along ``axis``."""
+    'full' correlation, ``n + size - 1`` samples along ``axis``.  A pass
+    that accumulates in the input's dtype goes to the fused kernel where
+    it applies (CUDA float32 under ``dtype_mode="float"``, 2-D or 3-D, at
+    most 64 real taps)."""
     dtype_mode = _default_dtype_mode(dtype_mode)
     input = util.as_tensor(input)
     weights = _as_weights(weights)
@@ -259,6 +266,12 @@ def _correlate1d(
     if not crop:
         acc = _full_correlate1d(input, weights, axis, mode, cval, acc_dtype)
         return _cast_output(acc, out_dtype)
+    if weights.dtype.kind != "c" and (
+            acc_dtype == out_dtype == dtypes.to_numpy(input.dtype)):
+        fused = _try_fused_separable(
+            input, [(axis, weights, mode, cval, origin)], out_dtype)
+        if fused is not None:
+            return fused
     if input.numel() == 0:  # scipy shape-preserves empty inputs
         return input.new_zeros(input.shape, dtype=dtypes.to_torch(out_dtype))
     acc = stencil.correlate1d_axis(
@@ -304,7 +317,9 @@ def correlate1d(
     """1-d correlation along the given axis (scipy.ndimage.correlate1d
     parity).  ``crop=False`` returns the 'full' correlation, ``n + size -
     1`` samples along ``axis`` (``origin`` is then ignored).  ``backend``
-    is accepted for API parity and ignored: there is one engine."""
+    is accepted for API parity and ignored: there is one engine.  A CUDA
+    float32 2-D or 3-D array under ``dtype_mode="float"`` is one launch of
+    the fused separable kernel (at most 64 taps)."""
     del backend
     return _correlate1d(
         input, weights, axis, output, mode, cval, origin, False, dtype_mode,

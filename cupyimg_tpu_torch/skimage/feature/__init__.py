@@ -1,7 +1,7 @@
 """skimage.feature on torch tensors: ``canny``, the corner and Hessian
-features, ``peak_local_max``, ``match_template`` and ``daisy``.  The
-registration aliases (``register_translation``,
-``masked_register_translation``) come with ``skimage.registration``."""
+features, ``peak_local_max``, ``match_template``, ``daisy`` and the
+deprecated registration aliases ``register_translation`` and
+``masked_register_translation`` (``registration.phase_cross_correlation``)."""
 
 from ._canny import canny
 from ._daisy import daisy
@@ -22,6 +22,39 @@ from .corner import (
 )
 from .template import match_template
 
+
+def masked_register_translation(
+    src_image, target_image, src_mask, target_mask=None,
+    overlap_ratio=0.3,
+):
+    """Deprecated alias of registration.phase_cross_correlation."""
+    from ..registration import phase_cross_correlation
+
+    return phase_cross_correlation(
+        src_image,
+        target_image,
+        reference_mask=src_mask,
+        moving_mask=target_mask,
+        overlap_ratio=overlap_ratio,
+    )
+
+
+def register_translation(
+    src_image, target_image, upsample_factor=1, space="real",
+    return_error=True,
+):
+    """Deprecated alias of registration.phase_cross_correlation."""
+    from ..registration import phase_cross_correlation
+
+    return phase_cross_correlation(
+        src_image,
+        target_image,
+        upsample_factor=upsample_factor,
+        space=space,
+        return_error=return_error,
+    )
+
+
 __all__ = [
     "canny",
     "daisy",
@@ -39,4 +72,6 @@ __all__ = [
     "corner_foerstner",
     "corner_peaks",
     "match_template",
+    "register_translation",
+    "masked_register_translation",
 ]
