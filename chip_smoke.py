@@ -7,7 +7,9 @@ Phases, each fatal on failure (a traceback and a non-zero exit):
 
 1. print the card's name and power limit (nvidia-smi);
 2. build every CUDA kernel from ``cupyimg_tpu_torch/csrc`` with nvcc, one
-   nvcc per source, all started together;
+   nvcc per source, all started together; then ``time.trace`` around one
+   uniform_filter of 256^3 (the process's first profiler session): its
+   Chrome trace must hold B1's kernel;
 3. hold each kernel against its plain PyTorch version on the card:
    the fused separable correlation over every boundary mode, origins,
    skipped axes, short axes and 4..64 taps (tolerance from the taps);
@@ -144,7 +146,29 @@ Phases, each fatal on failure (a traceback and a non-zero exit):
    4096^2; each call's launches of B1, B3 and the gather held to its
    plan (the correlations, label operations and level sets launch none),
    each result against its known shift or flow (mean error under half a
-   pixel), numpy/scipy or the port's CPU result, each timed;
+   pixel), numpy/scipy or the port's CPU result, each timed; then the
+   parallel path: ``parallel.run_world`` starts 2 ranks on the one card
+   (gloo: NCCL needs a card a rank; the slabs and retiles staged through
+   pinned host memory) once every kernel is built, and each rank runs 14
+   sharded calls at full size (uniform, gaussian and minimum filters of
+   256^3 on a (2,) mesh; median 5x5, correlate 9x9, shift, an
+   affine_transform and map_coordinates of bounded displacement, binary
+   erosion, label, fft2 and the spatially sharded FFT convolution of
+   4096^2; the batch-sharded fftconvolve of (4, 2048, 2048) with 31x31;
+   sharded_edge_enhance of (4, 1024, 1024) on a (1, 2) mesh), its counts
+   set to 0 before each call: each rank's launches must equal the
+   single-device plan on its block (one B1, B1 min/max, B3 or B2 launch;
+   a B1 prefilter and a gather launch for the shift; what the
+   single-device fftconvolve launches on the batch block; none for the
+   plain-torch calls), rank 0 holds each gathered result against the
+   port's single-device call on the card (1e-5 of max|ref| for the
+   separable filters and the pipeline, 1e-5 * sum|w| for correlate,
+   1e-4 of max|ref| for the FFTs, 2e-5 of max|x| for the
+   interpolations, exactly for min, median, erosion and label), and
+   each call is timed (median of 5, a barrier before each; the
+   exchange's host milliseconds beside it); then, in 2-rank worlds of
+   their own, which gloo collectives take CUDA tensors as they are (a
+   probe that crashes its world is reported so);
 5. times from CUDA events (median over up to 100 launches after a
    warm-up), printed as one ``{"cases": ...}`` and one ``{"kernels":
    ...}`` JSON line, with each kernel's bound and a PyTorch yardstick
@@ -170,6 +194,7 @@ printing no result, when CUDA is not available.
 """
 
 import json
+import os
 import re
 import subprocess
 import sys
@@ -4311,6 +4336,376 @@ def fft_rows_phase5(ff, torch, rows, imgc, inputs):
     return labels, e2e, methods
 
 
+PARALLEL_RANKS = 2
+
+
+def _parallel_rank(world):
+    """One rank of the parallel path (``parallel.run_world``'s ``fn``):
+    each sharded call at full size, its launches on this rank held to
+    its plan, its result gathered and held by rank 0 against the port's
+    single-device call on the card, then timed (median of 5, a barrier
+    before each, CUDA events; the exchange's host seconds from
+    ``parallel.traffic``).  Returns rank 0's rows and every rank's
+    launches."""
+    import torch
+    import torch.distributed as dist
+
+    import cupyimg_tpu_torch.scipy.ndimage as ndi
+    import cupyimg_tpu_torch.scipy.signal as sig
+    from cupyimg_tpu_torch import parallel as par
+    from cupyimg_tpu_torch.models import (edge_enhance_pipeline,
+                                         sharded_edge_enhance)
+    from cupyimg_tpu_torch.ops import fused_dense as fd
+    from cupyimg_tpu_torch.ops import fused_fft as ff
+    from cupyimg_tpu_torch.ops import fused_rank as fr
+    from cupyimg_tpu_torch.ops import fused_separable as fs
+    from cupyimg_tpu_torch.ops import spline_gather as sg
+
+    counters = {
+        "fused_separable_correlate": fs.fused_separable_correlate,
+        "fused_separable_minmax": fs.fused_separable_minmax,
+        "fused_dense_correlate": fd.fused_dense_correlate,
+        "fused_rank_filter": fr.fused_rank_filter,
+        "spline_gather": sg,
+        "fused_separable_open_close": fs.fused_separable_open_close,
+        "fused_separable_morph_pair": fs.fused_separable_morph_pair,
+        "fft_rows": ff.fft_rows,
+        "fft_strided": ff.fft_strided,
+    }
+    dev = world.device
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(dev).manual_seed(16)
+
+    def rand(*shape):
+        # the same numbers on every rank: one generator, one seed, one card
+        return torch.rand(shape, generator=gen, device=dev)
+
+    m2 = world.mesh((PARALLEL_RANKS,), ("x",))
+    mb = world.mesh((1, PARALLEL_RANKS), ("batch", "x"))
+    rows3, rows2 = ("x", None, None), ("x", None)
+    x3 = rand(256, 256, 256)
+    img = rand(4096, 4096)
+    w9 = torch.randn((9, 9), generator=gen, device=dev,
+                     dtype=torch.float64).cpu().numpy()
+    xb = rand(4, 2048, 2048)
+    k31 = rand(31, 31) - 0.5
+    blobs = ndi.uniform_filter(rand(4096, 4096), 15) > 0.5
+    z = torch.complex(img, rand(4096, 4096))
+    k2 = rand(31, 31) - 0.5
+    xe = rand(4, 1024, 1024)
+    th = np.deg2rad(0.05)  # about 2.5 pixels at the corners of 4096^2
+    rot = np.array([[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]])
+    ctr = np.full(2, 2047.5)
+    off = ctr - rot @ ctr
+    rr, cc = torch.meshgrid(
+        torch.arange(4096, dtype=torch.float64, device=dev),
+        torch.arange(4096, dtype=torch.float64, device=dev), indexing="ij")
+    coords = torch.stack([rr + 3.0 * torch.sin(cc / 131.0),
+                          cc - 2.5 * torch.cos(rr / 113.0)])
+    del rr, cc
+    torch.cuda.synchronize()
+
+    def count(fn):
+        for c in counters.values():
+            c.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: c.launches for k, c in counters.items()
+                     if c.launches}
+
+    def of_max(scale):
+        return lambda ref: scale * float(ref.abs().max())
+
+    def block(x, spec, mesh):
+        return par.distribute(x, mesh, spec).to_local()
+
+    b1, mm = "fused_separable_correlate", "fused_separable_minmax"
+    gather = {"spline_gather": 1}
+    # (label, plan per rank, sharded call, single-device call, atol)
+    calls = [
+        ("uniform_filter 256^3 size 5", {b1: 1},
+         lambda: par.sharded_uniform_filter(x3, 5, m2, rows3),
+         lambda: ndi.uniform_filter(x3, 5), of_max(1e-5)),
+        ("gaussian_filter 256^3 sigma 1.5", {b1: 1},
+         lambda: par.sharded_gaussian_filter(x3, 1.5, m2, rows3),
+         lambda: ndi.gaussian_filter(x3, 1.5), of_max(1e-5)),
+        ("minimum_filter 256^3 size 5", {mm: 1},
+         lambda: par.sharded_minimum_filter(x3, 5, m2, rows3),
+         lambda: ndi.minimum_filter(x3, 5), None),
+        ("median_filter 4096^2 5x5", {"fused_rank_filter": 1},
+         lambda: par.sharded_median_filter(img, 5, m2, rows2),
+         lambda: ndi.median_filter(img, 5), None),
+        ("correlate 4096^2 9x9", {"fused_dense_correlate": 1},
+         lambda: par.sharded_correlate(img, w9, m2, rows2),
+         lambda: ndi.correlate(img, w9, dtype_mode="float"),
+         lambda ref: 1e-5 * float(np.abs(w9).sum())),
+        # the plan: what the single-device call launches on this block
+        ("fftconvolve (4, 2048, 2048) 31x31 batch-sharded",
+         lambda: count(lambda: sig.fftconvolve(
+             block(xb, ("x", None, None), m2), k31[None], mode="same",
+             axes=(1, 2)))[1],
+         lambda: par.sharded_fftconvolve(xb, k31, m2, ("x", None, None)),
+         lambda: sig.fftconvolve(xb, k31[None], mode="same", axes=(1, 2)),
+         of_max(1e-4)),
+        ("shift 4096^2 order 3 (1.3, -0.7)", {b1: 1, "spline_gather": 1},
+         lambda: par.sharded_shift(img, (1.3, -0.7), m2, rows2, order=3),
+         lambda: ndi.shift(img, (1.3, -0.7), order=3, mode="reflect"),
+         lambda ref: 2e-5 * float(img.abs().max())),
+        ("affine_transform 4096^2 order 1 rotation 0.05 deg", gather,
+         lambda: par.sharded_affine_transform(img, rot, off, m2, rows2,
+                                              order=1),
+         lambda: ndi.affine_transform(img, rot, off, order=1,
+                                      mode="reflect"),
+         lambda ref: 2e-5 * float(img.abs().max())),
+        ("map_coordinates 4096^2 order 1 displacement 3", gather,
+         lambda: par.sharded_map_coordinates(img, coords, m2, rows2, 3.0,
+                                             order=1),
+         lambda: ndi.map_coordinates(img, coords, order=1, mode="reflect"),
+         lambda ref: 2e-5 * float(img.abs().max())),
+        ("binary_erosion 4096^2 blobs", {},
+         lambda: par.sharded_binary_erosion(blobs, mesh=m2, spec=rows2),
+         lambda: ndi.binary_erosion(blobs), None),
+        ("label 4096^2 blobs", {},
+         lambda: par.sharded_label(blobs, m2, rows2),
+         lambda: ndi.label(blobs), None),
+        ("fft2 4096^2 complex64", {},
+         lambda: par.sharded_fft2(z, m2, rows2),
+         lambda: torch.fft.fft2(z), of_max(1e-4)),
+        ("fftconvolve2d_spatial 4096^2 31x31 same", {},
+         lambda: par.sharded_fftconvolve2d_spatial(img, k2, m2, rows2),
+         lambda: sig.fftconvolve(img, k2, mode="same"), of_max(1e-4)),
+        ("sharded_edge_enhance (4, 1024, 1024) mesh (1, 2)", {b1: 3},
+         lambda: sharded_edge_enhance(xe, mb, ("batch", "x", None)),
+         lambda: torch.stack([edge_enhance_pipeline(v) for v in xe]),
+         of_max(1e-5)),
+    ]
+    rows, path = [], {}
+    for label, plan, sharded, single, atol in calls:
+        if callable(plan):
+            plan = plan()
+        sharded()  # warm-up: libraries loaded, FFT plans made
+        torch.cuda.synchronize()
+        dist.barrier()
+        out, got = count(sharded)
+        for k, v in got.items():
+            path[k] = path.get(k, 0) + v
+        if got != plan:
+            raise RuntimeError(f"{label}: rank {world.rank} launched {got}, "
+                               f"the single-device plan on its block is "
+                               f"{plan}")
+        if isinstance(out, tuple):  # label: (labels, count)
+            got_full = (par.full_tensor(out[0]), int(out[1]))
+        else:
+            got_full = par.full_tensor(out)
+        check = None
+        if world.rank == 0:
+            ref = single()
+            if isinstance(ref, tuple):
+                if not (torch.equal(got_full[0], ref[0])
+                        and got_full[1] == int(ref[1])):
+                    raise RuntimeError(f"{label}: labels differ")
+                check = f"exact, {got_full[1]} labels"
+            elif atol is None:
+                if not (got_full.dtype == ref.dtype
+                        and torch.equal(got_full, ref)):
+                    raise RuntimeError(f"{label}: differs from the "
+                                       "single-device call")
+                check = "exact"
+            else:
+                tol = atol(ref)
+                err = float((got_full - ref).abs().max())
+                if not (err <= tol and bool(torch.isfinite(got_full).all())):
+                    raise RuntimeError(f"{label}: max_abs_err {err:.3e} "
+                                       f"over {tol:.3e}")
+                check = f"max_abs_err {err:.3e} (atol {tol:.3e})"
+            del ref
+        del out, got_full
+        ms, ex = [], []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            dist.barrier()
+            par.traffic.reset()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            sharded()
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+            ex.append(par.traffic.seconds * 1e3)
+        rows.append({"case": label, "ms": float(np.median(ms)),
+                     "exchange_ms": float(np.median(ex)),
+                     "launches_per_rank": plan, "check": check,
+                     "transport": world.transport})
+        torch.cuda.empty_cache()
+
+    launches = [None] * world.size
+    dist.all_gather_object(launches, path)
+    return {"rows": rows, "launches": launches}
+
+
+GLOO_PROBES = ("all_gather", "all_to_all_single", "batch_isend_irecv",
+               "DTensor.full_tensor")
+
+
+def _gloo_probe_rank(world, log_path, names):
+    """One rank of the gloo probe: each collective of ``names`` handed
+    CUDA tensors as they are (the library never does that: it stages
+    every exchange of a CUDA tensor over gloo through host memory).  Rank
+    0 writes ``start <name>`` before a probe and ``<name>: <finding>``
+    after it to ``log_path``, so a probe that crashes the process is
+    still named."""
+    import torch
+    import torch.distributed as dist
+
+    from cupyimg_tpu_torch import parallel as par
+
+    dev = world.device
+    small = torch.arange(8.0, device=dev) + world.rank
+    peer = 1 - world.rank
+    calls = {
+        "all_gather": lambda: dist.all_gather(
+            [torch.empty_like(small) for _ in range(world.size)], small),
+        "all_to_all_single": lambda: dist.all_to_all_single(
+            torch.empty_like(small), small),
+        "batch_isend_irecv": lambda: [w.wait() for w in dist.batch_isend_irecv(
+            [dist.P2POp(dist.isend, small, peer),
+             dist.P2POp(dist.irecv, torch.empty_like(small), peer)])],
+        "DTensor.full_tensor": lambda: par.distribute(
+            torch.arange(16.0, device=dev),
+            world.mesh((PARALLEL_RANKS,), ("x",)), ("x",)).full_tensor(),
+    }
+
+    def log(line):
+        if world.rank == 0:
+            with open(log_path, "a") as f:
+                f.write(line + "\n")
+
+    for name in names:
+        log(f"start {name}")
+        try:
+            calls[name]()
+            torch.cuda.synchronize()
+            found = "takes CUDA tensors"
+        except Exception as e:  # noqa: BLE001 -- the probe's finding
+            found = f"raises {type(e).__name__}: {str(e).splitlines()[0]}"
+        log(f"{name}: {found}")
+        dist.barrier()
+
+
+def gloo_probes():
+    """Which gloo collectives take CUDA tensors as they are, probed in
+    turn in a 2-rank world on the card (``_gloo_probe_rank``); a probe
+    that crashes a rank ends its world and is reported as crashing, and
+    the probes not yet run go on in a new world.  Returns {probe:
+    finding}."""
+    import shutil
+    import tempfile
+
+    from cupyimg_tpu_torch.parallel import run_world
+
+    found, todo = {}, list(GLOO_PROBES)
+    while todo:
+        tmp = tempfile.mkdtemp(prefix="cupyimg_probe_")
+        log_path = os.path.join(tmp, "probes.log")
+        ended = None
+        try:
+            try:
+                run_world(_gloo_probe_rank, PARALLEL_RANKS, "cuda", log_path,
+                          tuple(todo), timeout=30.0)
+            except RuntimeError as err:  # a crash is a finding, not a fault
+                ended = str(err).splitlines()[0]
+            lines = (open(log_path).read().splitlines()
+                     if os.path.exists(log_path) else [])
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        found.update(ln.split(": ", 1) for ln in lines
+                     if not ln.startswith("start "))
+        for ln in lines:  # a probe started and never finished
+            if ln.startswith("start ") and ln[6:] not in found:
+                found[ln[6:]] = f"crashed the world ({ended})"
+        if not any(name in found for name in todo):
+            # the world ended before its first probe
+            found.update((name, f"not run ({ended})") for name in todo)
+        # a world that ended between two probes leaves the rest to a new one
+        todo = [name for name in todo if name not in found]
+    for name in GLOO_PROBES:
+        print(f"parallel path gloo on CUDA tensors: {name}: {found[name]}")
+    return found
+
+
+def parallel_path(torch):
+    """Phase 4, parallel path: ``run_world`` starts 2 ranks on the one
+    card (gloo, the slabs staged through pinned host memory: NCCL needs a
+    card a rank, which this machine does not have), after the parent has
+    built every kernel (the ranks load them from ``build/kernels``).
+    Each rank runs 14 sharded calls at full size (``_parallel_rank``):
+    uniform, gaussian and minimum filters of 256^3, the median 5x5,
+    correlate 9x9, shift (order 3), affine_transform and map_coordinates
+    (order 1, bounded displacement), binary erosion, label, fft2 and the
+    spatially sharded FFT convolution of 4096^2, the batch-sharded
+    fftconvolve of (4, 2048, 2048) with 31x31 and sharded_edge_enhance
+    of (4, 1024, 1024) on a (1, 2) mesh.  Returns the rows and the
+    launches summed over the ranks."""
+    from cupyimg_tpu_torch.parallel import run_world
+
+    t0 = time.perf_counter()
+    out = run_world(_parallel_rank, PARALLEL_RANKS, "cuda", timeout=90.0)
+    wall = time.perf_counter() - t0
+    width = max(len(r["case"]) for r in out["rows"])
+    for r in out["rows"]:
+        planned = " + ".join(f"{k} x{v}" for k, v in
+                             r["launches_per_rank"].items()) or "no launch"
+        print(f"parallel path {r['case']:{width}s} {r['ms']:10.3f} ms "
+              f"(exchange {r['exchange_ms']:.3f} ms, {r['transport']}; a "
+              f"rank: {planned}) vs single-device: {r['check']}")
+    launches = {}
+    for per_rank in out["launches"]:
+        for k, v in per_rank.items():
+            launches[k] = launches.get(k, 0) + v
+    print(f"parallel path launches (both ranks): {json.dumps(launches)}")
+    print(f"parallel path: {wall:.1f} s, spawn included")
+    return out["rows"], launches, gloo_probes()
+
+
+def trace_check(torch):
+    """``time.trace`` around one uniform_filter of 256^3 on the card: the
+    Chrome trace it writes must hold a CUDA kernel event of B1's planes
+    kernel."""
+    import shutil
+    import tempfile
+
+    import cupyimg_tpu_torch.scipy.ndimage as ndi
+    from cupyimg_tpu_torch.time import trace
+
+    xc3 = torch.rand(256, 256, 256, device="cuda")
+    ndi.uniform_filter(xc3, 5)
+    torch.cuda.synchronize()
+    for attempt in range(3):
+        # the profiler can lose kernel records (see kernel_ms): try again
+        tmp = tempfile.mkdtemp(prefix="cupyimg_trace_")
+        try:
+            with trace(tmp) as log_dir:
+                ndi.uniform_filter(xc3, 5)
+            files = [f for f in os.listdir(log_dir) if f.endswith(".json")]
+            check(len(files) == 1, f"time.trace wrote {files}")
+            with open(os.path.join(log_dir, files[0])) as f:
+                events = json.load(f)["traceEvents"]
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        every = [e for e in events if e.get("cat") == "kernel"]
+        kernels = [e for e in every
+                   if "fused_separable_f32_kernel" in e.get("name", "")]
+        if kernels:
+            print(f"time.trace: {files[0]} holds B1's kernel "
+                  f"({kernels[0]['dur']} us)")
+            return
+        print(f"time.trace: no kernel record of B1 among {len(events)} "
+              f"events ({len(every)} kernel records); tracing again")
+    check(False, "time.trace: no CUDA kernel event of B1 in three traces")
+
+
 def main():
     import torch
 
@@ -4364,6 +4759,9 @@ def main():
                   f"{max(regs, default=0)} registers and "
                   f"{max(spills, default=0)} bytes of spills")
     ptxas_lines(_build, fr)
+    # the first profiler session of the process: after the later paths'
+    # sessions a trace once came back with no kernel record at all
+    trace_check(torch)
 
     # -- phase 3: kernels vs plain versions ---------------------------------
     t0 = time.perf_counter()
@@ -4587,6 +4985,16 @@ def main():
         check(rg_launches[kernel] >= 1,
               f"{kernel} not launched on the registration path")
     torch.cuda.empty_cache()
+    par_rows, par_launches, par_probes = parallel_path(torch)
+    for kernel in ("fused_separable_correlate", "fused_separable_minmax",
+                   "fused_dense_correlate", "fused_rank_filter",
+                   "spline_gather"):
+        check(par_launches.get(kernel, 0) >= 1,
+              f"{kernel} not launched on the parallel path")
+    check(par_launches.get("fft_rows", 0) + par_launches.get(
+        "fft_strided", 0) >= 1, "fused_fft not launched on the parallel path")
+    torch.cuda.empty_cache()
+    print(f"phase 4 done at {time.perf_counter() - t_start:.1f} s")
 
     # -- phase 5: times -----------------------------------------------------
     F = torch.nn.functional
@@ -4938,6 +5346,8 @@ def main():
                       "transform_path": tr_rows,
                       "filters_path": fi_rows,
                       "registration_path": rg_rows,
+                      "parallel_path": par_rows,
+                      "parallel_path_gloo_probes": par_probes,
                       "end_to_end": [fft_e2e], "conv_methods": conv_methods}))
     stencil = "cupyimg_tpu/ops/pallas_stencil.py"
     kernels = [
@@ -5062,6 +5472,15 @@ def main():
             + rg_launches["fused_separable_morph_pair"],
             "fused_fft": rg_launches["fft_rows"] + rg_launches["fft_strided"],
         }.get(entry["name"], rg_launches.get(entry["name"], 0))
+        # the sharded calls' single-device calls on each rank's block,
+        # summed over the two ranks
+        entry["launches_parallel_path"] = {
+            "fused_separable_morph": par_launches.get(
+                "fused_separable_open_close", 0)
+            + par_launches.get("fused_separable_morph_pair", 0),
+            "fused_fft": par_launches.get("fft_rows", 0)
+            + par_launches.get("fft_strided", 0),
+        }.get(entry["name"], par_launches.get(entry["name"], 0))
     line[-1]["entries"] = [
         {k: rows[lb][k] for k in ("case", "ms", "kernel_ms", "plain_ms",
                                   "bound_ms", "bound_by", "library_ms",

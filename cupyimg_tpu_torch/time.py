@@ -1,20 +1,24 @@
-"""Benchmark timing harness: the counterpart of ``cupyimg_tpu.time.repeat``.
+"""Benchmark timing harness: the counterpart of ``cupyimg_tpu.time``.
 
-CPU wall time via ``perf_counter`` around each call (the enqueue), and
-device time from a pair of ``torch.cuda.Event``s around each call on the
-current stream.  A measurement needs a CUDA device: with none, ``repeat``
-raises rather than timing the CPU.
+``repeat``: CPU wall time via ``perf_counter`` around each call (the
+enqueue), and device time from a pair of ``torch.cuda.Event``s around
+each call on the current stream.  A measurement needs a CUDA device: with
+none, ``repeat`` raises rather than timing the CPU.  ``trace``: a
+``torch.profiler`` trace of a block, written as a Chrome trace.
 """
 
 from __future__ import annotations
 
+import contextlib as _contextlib
 import math
+import os
+import tempfile
 import time as _time
 
 import numpy as np
 import torch
 
-__all__ = ["repeat"]
+__all__ = ["repeat", "trace"]
 
 
 class _PerfCaseResult:
@@ -109,3 +113,35 @@ def repeat(
     dev_times = [s.elapsed_time(e) * 1e-3 for s, e in events]
     ts = np.asarray([cpu_times, dev_times], dtype=np.float64)
     return _PerfCaseResult(name, ts, devices=(device,))
+
+
+@_contextlib.contextmanager
+def trace(log_dir=None):
+    """Capture a ``torch.profiler`` trace of the enclosed block.
+
+    Records CPU activity, and CUDA activity (each kernel's launch and its
+    run on the card) when CUDA is available.  On leaving the block it
+    waits for the card and writes a Chrome trace,
+    ``<log_dir>/<host>_<pid>.<time>.pt.trace.json`` (open it in Perfetto,
+    ``chrome://tracing`` or TensorBoard's profile plugin).  ``log_dir``
+    defaults to ``cupyimg_tpu_torch_trace`` in the temporary directory;
+    it is yielded.  Usage::
+
+        with cupyimg_tpu_torch.time.trace("tr") as d:
+            out = ndi.uniform_filter(x, 5)
+    """
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+
+    if log_dir is None:
+        log_dir = os.path.join(tempfile.gettempdir(),
+                               "cupyimg_tpu_torch_trace")
+    cuda = torch.cuda.is_available()
+    activities = [ProfilerActivity.CPU]
+    if cuda:
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(log_dir)):
+        yield log_dir
+        if cuda:
+            torch.cuda.synchronize()

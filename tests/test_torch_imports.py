@@ -1,5 +1,7 @@
 """The port stands alone: no module of ``cupyimg_tpu_torch``, and not
-``chip_smoke.py``, imports JAX or anything of ``cupyimg_tpu``."""
+``chip_smoke.py``, imports JAX or anything of ``cupyimg_tpu`` (a spawned
+rank of ``parallel.run_world`` neither: ``test_torch_parallel.py``
+asserts it on its world)."""
 
 import ast
 import json
@@ -146,6 +148,18 @@ SLICE_11 = [
 ]
 
 
+# modules of the multi-device package, the dual-backend test oracle and
+# the graft entry
+SLICE_12 = [
+    "cupyimg_tpu_torch.parallel",
+    "cupyimg_tpu_torch.parallel.halo",
+    "cupyimg_tpu_torch.parallel._world",
+    "cupyimg_tpu_torch.testing",
+    "cupyimg_tpu_torch.testing.helper",
+    "cupyimg_tpu_torch.graft_entry",
+]
+
+
 def _forbidden(name):
     return name.split(".")[0] in ("jax", "jaxlib", "cupyimg_tpu")
 
@@ -161,6 +175,7 @@ def test_every_port_module_imports_without_jax():
     assert set(SLICE_9) <= set(out["names"])
     assert set(SLICE_10) <= set(out["names"])
     assert set(SLICE_11) <= set(out["names"])
+    assert set(SLICE_12) <= set(out["names"])
     assert out["bad"] == []
 
 

@@ -13,8 +13,8 @@ on CPU tensors.
   keyword arguments and errors.
 - ``cache_source`` writes the profile of a call into its directory.
 - The public names of ``models``, ``_misc`` and the package root match
-  ``cupyimg_tpu``'s but for the JAX-only ``get_hlo`` and the sharded
-  pipeline, which comes with ``parallel``.
+  ``cupyimg_tpu``'s but for the JAX-only ``get_hlo`` (the sharded
+  pipeline is held in ``test_torch_parallel.py``).
 """
 
 import os
@@ -162,5 +162,4 @@ def test_public_names_match_cupyimg_tpu():
     assert set(_misc.__all__) == set(jmisc.__all__) - {"get_hlo"}
     jm = _jax_models()
     names = {n for n in dir(jm) if not n.startswith("_")}
-    assert {n for n in dir(models) if not n.startswith("_")} == names - {
-        "sharded_edge_enhance"}
+    assert {n for n in dir(models) if not n.startswith("_")} == names
