@@ -168,7 +168,17 @@ Phases, each fatal on failure (a traceback and a non-zero exit):
    each call is timed (median of 5, a barrier before each; the
    exchange's host milliseconds beside it); then, in 2-rank worlds of
    their own, which gloo collectives take CUDA tensors as they are (a
-   probe that crashes its world is reported so);
+   probe that crashes its world is reported so); then the half path
+   (``half_path``): B1's kernels in float16 and bfloat16 against their
+   plain versions (every kind, both paths, four modes, two row
+   alignments: exact but corr and laplace, within 1 ulp of the type),
+   then, its counts set to 0, eight calls in each type (uniform,
+   gaussian, minimum, grey_opening and morphological_gradient of 256^3;
+   uniform, sobel and grey_closing of 4096^2), each one B1 launch and
+   held to SciPy in float64 on the same values, each timed at 2 bytes a
+   sample beside the same call's kernel in float32; the kernels line
+   gains an entry for each of B1 corr, min/max and B1-morph in each half
+   type, and ``launches_half_path`` on every entry;
 5. times from CUDA events (median over up to 100 launches after a
    warm-up), printed as one ``{"cases": ...}`` and one ``{"kernels":
    ...}`` JSON line, with each kernel's bound and a PyTorch yardstick
@@ -282,12 +292,13 @@ def kernel_ms(launch, kernel, n=20, per_call=1):
     return median_ms(launch)
 
 
-def bound(numel, flops=0.0, minmax_ops=0.0):
+def bound(numel, flops=0.0, minmax_ops=0.0, itemsize=4):
     """(bound_ms, bound_by): the larger of one read + one write of
-    4-byte values at PEAK_BYTES and the work at its peak rate: ``flops``
-    per voxel at PEAK_FP32, ``minmax_ops`` (min/max instructions) per
-    voxel at PEAK_MINMAX."""
-    t_bytes = 8 * numel / PEAK_BYTES
+    ``itemsize``-byte values at PEAK_BYTES and the work at its peak rate:
+    ``flops`` per voxel at PEAK_FP32, ``minmax_ops`` (min/max
+    instructions) per voxel at PEAK_MINMAX (the half types' kernels
+    compute in float32)."""
+    t_bytes = 2 * itemsize * numel / PEAK_BYTES
     t_ops = numel * (flops / PEAK_FP32 + minmax_ops / PEAK_MINMAX)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else
                                        "operations")
@@ -495,29 +506,37 @@ def ptxas_lines(_build, fr):
     print(f"ptxas B3 instances: {len(inst)} kernels, at most "
           f"{max(e[1] for e in inst)} registers, "
           f"{sum(1 for e in inst if e[2] or e[4])} with spills or stack")
-    log = _build.library_path("fused_separable").with_suffix(".log")
     kinds = ("opening", "closing", "gradient", "laplace")
-    for name, regs, st, ld, stack in ptxas_entries(log.read_text()):
-        spill = (f"{regs} registers, {st} bytes spill stores, {ld} bytes "
-                 f"spill loads, {stack} bytes stack")
-        m = re.search(r"morph_planes_f32_kernelILi(\d)ELi(\d)E", name)
-        if m:
-            window = ("ring" if m.group(2) == "0" else
-                      f"axis-0 window {m.group(2)} in registers")
-            print(f"ptxas B1-morph planes path {kinds[int(m.group(1))]}, "
-                  f"{window}: {spill}")
-            continue
-        m = re.search(r"morph_rows_f32_kernelILi(\d)E", name)
-        if m:
-            print(f"ptxas B1-morph rows path {kinds[int(m.group(1))]}: "
-                  f"{spill}")
-            continue
-        for kernel, path in (("fused_separable_f32_kernel", "planes"),
-                             ("rows_f32_kernel", "rows")):
-            if kernel in name:
-                op = ("corr", "min", "max")[int(re.search(
-                    kernel + r"ILi(\d)E", name).group(1))]
-                print(f"ptxas B1 {path} path {op}: {spill}")
+    # one part per element type, its kernels' last template argument
+    for part in _build.parts("fused_separable"):
+        log = _build.library_path("fused_separable", part).with_suffix(".log")
+        for name, regs, st, ld, stack in ptxas_entries(log.read_text()):
+            spill = (f"{regs} registers, {st} bytes spill stores, {ld} "
+                     f"bytes spill loads, {stack} bytes stack")
+            etype = ("bfloat16" if "__nv_bfloat16" in name else
+                     "float16" if "__half" in name else "float32")
+            m = re.search(r"morph_planes_f32_kernelILi(\d)ELi(\d)E", name)
+            if m:
+                window = ("ring" if m.group(2) == "0" else
+                          f"axis-0 window {m.group(2)} in registers")
+                print(f"ptxas B1-morph planes path {kinds[int(m.group(1))]}"
+                      f", {window}, {etype}: {spill}")
+                continue
+            m = re.search(r"morph_rows_f32_kernelILi(\d)E", name)
+            if m:
+                print(f"ptxas B1-morph rows path {kinds[int(m.group(1))]}, "
+                      f"{etype}: {spill}")
+                continue
+            for kernel, path in (("fused_separable_f32_kernel", "planes"),
+                                 ("rows_f32_kernel", "rows")):
+                if kernel in name:
+                    m = re.search(kernel + r"ILi(\d)E(?:Li(\d)E)?", name)
+                    op = ("corr", "min", "max")[int(m.group(1))]
+                    window = ("" if m.group(2) is None else
+                              ", ring" if m.group(2) == "0" else
+                              f", axis-0 window {m.group(2)} in registers")
+                    print(f"ptxas B1 {path} path {op}{window}, {etype}: "
+                          f"{spill}")
     log = _build.library_path("fused_dense").with_suffix(".log")
     for name, regs, st, ld, stack in ptxas_entries(log.read_text()):
         m = re.search(r"dense_blocked_f32_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
@@ -4706,6 +4725,406 @@ def trace_check(torch):
     check(False, "time.trace: no CUDA kernel event of B1 in three traces")
 
 
+# the half types: torch dtype and the mantissa step at 1.0
+HALF_TYPES = (("float16", 2.0 ** -10), ("bfloat16", 2.0 ** -7))
+# mode -> (cval, taps or window on every axis) of the half kernels'
+# checks: the equal, symmetric and general tap kinds, the register
+# windows and the rings
+HALF_MODES = {"reflect": (0.0, 5), "constant": (0.3, 9), "nearest": (0.0, 4),
+              "wrap": (0.0, 3)}
+HALF_KINDS = ("corr", "min", "max", "opening", "closing", "grad", "laplace")
+
+
+def half_ulp(eps, magnitude):
+    """One ulp of a half type (mantissa step ``eps`` at 1.0) at
+    ``magnitude``."""
+    return eps * 2.0 ** np.floor(np.log2(max(float(magnitude), 1e-30)))
+
+
+def _half_taps(n):
+    if n == 5:
+        return (0.2,) * 5
+    if n == 9:
+        g = np.exp(-0.5 * np.arange(-4, 5) ** 2 / 4.0)
+        return tuple(g / g.sum())
+    if n == 4:
+        return (0.1, -0.6, 0.3, 1.2)
+    return (0.25, 0.5, 0.25)
+
+
+def _half_kind(fs, kind, x, n, mode, cval):
+    """(kernel, plain) results of one B1 kind on the CUDA tensor ``x``,
+    windows or taps of ``n`` on every axis (axis 0 of a 3-D array under
+    wrap unfiltered: a register window of 1)."""
+    nd = x.ndim
+    sizes = [n] * nd
+    if nd == 3 and mode == "wrap":
+        sizes[0] = 1
+    modes, zeros = (mode,) * nd, (0,) * nd
+    origins = tuple(1 if sz == 4 else 0 for sz in sizes)
+    if kind == "corr":
+        args = ([None if sz == 1 else _half_taps(sz) for sz in sizes],
+                origins, modes, cval)
+        return (fs.fused_separable_correlate(x, *args),
+                fs.fused_separable_correlate_ref(x, *args))
+    if kind in ("min", "max"):
+        args = (sizes, origins, modes, cval, kind == "min")
+        return (fs.fused_separable_minmax(x, *args),
+                fs.fused_separable_minmax_ref(x, *args))
+    if kind in ("opening", "closing"):
+        args = (sizes, origins, zeros, modes, cval, kind == "opening")
+        return (fs.fused_separable_open_close(x, *args),
+                fs.fused_separable_open_close_ref(x, *args))
+    args = (sizes, origins, modes, cval, kind)
+    return (fs.fused_separable_morph_pair(x, *args),
+            fs.fused_separable_morph_pair_ref(x, *args))
+
+
+def half_vs_plain(fs, torch):
+    """B1 on float16 and bfloat16 against its plain versions: every kind
+    x both types x the rows (2-D) and planes (3-D) paths x reflect,
+    constant (cval 0.3), nearest and wrap, on rows that can and cannot be
+    read in 16-byte chunks; min/max/opening/closing/gradient exactly, NaN
+    included, corr and laplace within 1 ulp of the type at max|plain|."""
+    rng = np.random.RandomState(11)
+    shapes = {"rows": ((200, 520), (201, 300)),
+              "planes": ((16, 40, 136), (15, 37, 70))}
+    worst = {}
+    for dname, eps in HALF_TYPES:
+        dtype = getattr(torch, dname)
+        for path, pair in shapes.items():
+            for shape in pair:
+                base = rng.standard_normal(shape).astype(np.float32)
+                nan = base.copy()
+                nan.flat[::97] = np.nan
+                for mode, (cval, n) in HALF_MODES.items():
+                    for kind in HALF_KINDS:
+                        exact = kind not in ("corr", "laplace")
+                        x = dev(nan if exact else base).to(dtype)
+                        got, ref = _half_kind(fs, kind, x, n, mode, cval)
+                        torch.cuda.synchronize()
+                        check(got.dtype == dtype and ref.dtype == dtype,
+                              f"half {kind}: dtype {got.dtype}")
+                        key = (dname, kind)
+                        if exact:
+                            check(same(got, ref), f"half {kind} {dname} "
+                                  f"{path} {shape} {mode}: kernel differs "
+                                  "from its plain version")
+                            worst[key] = 0.0
+                            continue
+                        tol = half_ulp(eps, ref.abs().max())
+                        err = float((got.float() - ref.float()).abs().max())
+                        check(err <= tol, f"half {kind} {dname} {path} "
+                              f"{shape} {mode}: {err:.3e} > 1 ulp {tol:.1e}")
+                        worst[key] = max(worst.get(key, 0.0), err / tol)
+    for (dname, kind), w in sorted(worst.items()):
+        print(f"kernel-vs-plain half {dname:8s} {kind:8s} 32 cases "
+              f"(2 paths x 2 row alignments x 4 modes): "
+              + ("exact" if kind not in ("corr", "laplace") else
+                 f"at most {w:.2f} ulp of max|plain|"))
+
+
+def half_path(fs, ndi, sndi, torch, boundary):
+    """The half path: B1 on float16 and bfloat16 at full size.  Its
+    kernels against their plain versions first (half_vs_plain); then,
+    with the counts set to 0, eight public calls in each type
+    (uniform_filter, gaussian_filter, minimum_filter, grey_opening and
+    morphological_gradient of 256^3, uniform_filter, sobel and
+    grey_closing of 4096^2), each held to one launch of its B1 entry and
+    to SciPy in float64 on the same half values (the inputs are k / 256,
+    exact in both types, so one reference serves both): opening, closing
+    and minimum exactly, the correlations and the gradient within 1 ulp
+    at max|ref| plus 2^-24 x sum|taps| x max|x| an axis.  Then each
+    call's kernel timed (``time_row``: against the plain version again,
+    a copy, the bound at 2 bytes a sample, and the float32 row's library
+    call in the half type, timed only) and beside it the same call's
+    kernel on the same values in float32.  Returns (rows, launches, kernel
+    entries)."""
+    F = torch.nn.functional
+    t0 = time.perf_counter()
+    half_vs_plain(fs, torch)
+    print(f"half path kernel-vs-plain: {time.perf_counter() - t0:.1f} s")
+    counters = {"fused_separable_correlate": fs.fused_separable_correlate,
+                "fused_separable_minmax": fs.fused_separable_minmax,
+                "fused_separable_open_close": fs.fused_separable_open_close,
+                "fused_separable_morph_pair": fs.fused_separable_morph_pair}
+    rng = np.random.default_rng(17)
+    v = {"3": rng.integers(0, 256, (256,) * 3).astype(np.float32) / 256,
+         "2": rng.integers(0, 256, (4096, 4096)).astype(np.float32) / 256}
+    u5, u9 = [0.2] * 5, [1 / 9] * 9
+    g17 = np.exp(-0.5 * (np.arange(-8, 9) / 2.0) ** 2)  # sigma 2, radius 8
+    g17 = tuple(g17 / g17.sum())
+    s3, d3 = (1.0, 2.0, 1.0), (-1.0, 0.0, 1.0)
+    corr, mm = "fused_separable_correlate", "fused_separable_minmax"
+    oc, pair = "fused_separable_open_close", "fused_separable_morph_pair"
+    # (label, input, entry, call, SciPy call, taps for the tolerance or
+    # None for exact)
+    calls = [
+        ("uniform_filter(256^3, size=5)", "3", corr,
+         lambda m, x: m.uniform_filter(x, 5), [u5] * 3),
+        ("gaussian_filter(256^3, sigma=2)", "3", corr,
+         lambda m, x: m.gaussian_filter(x, 2), [g17] * 3),
+        ("minimum_filter(256^3, 5)", "3", mm,
+         lambda m, x: m.minimum_filter(x, 5), None),
+        ("grey_opening(256^3, size=5)", "3", oc,
+         lambda m, x: m.grey_opening(x, size=5), None),
+        # max - min of half values rounded once: not exact in the type
+        ("morphological_gradient(256^3, size=3)", "3", pair,
+         lambda m, x: m.morphological_gradient(x, size=3), []),
+        ("uniform_filter(4096^2, size=9)", "2", corr,
+         lambda m, x: m.uniform_filter(x, 9), [u9] * 2),
+        ("sobel(4096^2)", "2", corr, lambda m, x: m.sobel(x), [s3, d3]),
+        ("grey_closing(4096^2, size=5)", "2", oc,
+         lambda m, x: m.grey_closing(x, size=5), None),
+    ]
+    xs = {d: {k: dev(a).to(getattr(torch, d)) for k, a in v.items()}
+          for d, _ in HALF_TYPES}
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    results, deltas = {}, {}
+    for dname, _ in HALF_TYPES:
+        for label, key, entry, fn, _ in calls:
+            before = {k: c.launches for k, c in counters.items()}
+            results[dname, label] = fn(ndi, xs[dname][key])
+            deltas[dname, label] = {k: c.launches - before[k]
+                                    for k, c in counters.items()}
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    print(f"half path launches: {json.dumps(launches)}")
+    for label, key, entry, fn, taps in calls:
+        for dname, _ in HALF_TYPES:
+            want = {k: int(k == entry) for k in counters}
+            check(deltas[dname, label] == want,
+                  f"half path {label} {dname} launched "
+                  f"{deltas[dname, label]}, not one {entry}")
+        x64 = v[key].astype(np.float64)
+        ref = fn(sndi, x64)
+        amax = float(np.abs(x64).max())
+        for dname, eps in HALF_TYPES:
+            y = results.pop((dname, label))
+            check(y.dtype == getattr(torch, dname) and y.shape == ref.shape,
+                  f"half path {label} {dname}: {y.dtype} {tuple(y.shape)}")
+            got = y.double().cpu().numpy()
+            check(np.isfinite(got).all(), f"half path {label}: non-finite")
+            err = float(np.abs(got - ref).max())
+            if taps is None:
+                check(np.array_equal(got, ref),
+                      f"half path {label} {dname}: differs from scipy "
+                      f"({err:.3e})")
+                note = "exact"
+            else:
+                tol = half_ulp(eps, np.abs(ref).max()) + sum(
+                    2.0 ** -24 * float(np.abs(t).sum()) * amax for t in taps)
+                check(err <= tol, f"half path {label} {dname}: {err:.3e} "
+                                  f"from scipy > {tol:.2e}")
+                note = f"atol {tol:.2e}"
+            print(f"half path {label:40s} {dname:8s} {entry} x1 "
+                  f"max_abs_err vs scipy float64 {err:.3e} ({note})")
+        del ref, x64
+
+    def pool(x, size, is_min):
+        op = F.max_pool3d if x.ndim == 3 else F.max_pool2d
+        y = x[None, None]
+        return (-op(-y, size, stride=1) if is_min else
+                op(y, size, stride=1))[0, 0]
+
+    rows, cases = {}, []
+    for dname, eps in HALF_TYPES:
+        dtype = getattr(torch, dname)
+        x3, x2 = xs[dname]["3"], xs[dname]["2"]
+
+        def ulp_of(ref, eps=eps):
+            return half_ulp(eps, ref.abs().max())
+
+        def corr_row(label, x, weights, library, library_call):
+            nd = x.ndim
+            args = (x, weights, (0,) * nd, ("reflect",) * nd, 0.0)
+            ntaps = [len(w) for w in weights]
+            rows[label] = time_row(
+                label, lambda: fs.fused_separable_correlate(*args),
+                lambda: fs.fused_separable_correlate_ref(*args), x,
+                bound(x.numel(), flops=2 * sum(ntaps), itemsize=2), ulp_of,
+                (library, None), library_call, n_plain=10,
+                kernel="rows_f32_kernel" if nd == 2 else
+                "fused_separable_f32_kernel")
+
+        def padded(x, sizes, mode="reflect"):
+            return boundary.pad(x, [(k // 2, k - 1 - k // 2) for k in sizes],
+                                mode)[None, None]
+
+        def dense(weights):
+            w = weights[0]
+            for t in weights[1:]:
+                w = np.multiply.outer(w, t)
+            return torch.tensor(w, dtype=dtype, device="cuda")[None, None]
+
+        def composite(xp, weights):
+            ks = []
+            for ax, w in enumerate(weights):
+                shape = [1] * len(weights)
+                shape[ax] = len(w)
+                ks.append(torch.tensor(w, dtype=dtype, device="cuda")
+                          .reshape(1, 1, *shape))
+            conv = F.conv3d if len(weights) == 3 else F.conv2d
+
+            def run():
+                y = xp
+                for k in ks:
+                    y = conv(y, k)
+                return y
+            return run
+
+        xp, w = padded(x3, (5,) * 3), dense([u5] * 3)
+        corr_row(f"uniform_filter 256^3 size=5 {dname}", x3, (tuple(u5),) * 3,
+                 lambda xp=xp, w=w: F.conv3d(xp, w),
+                 f"cuDNN conv3d with the dense 5x5x5 filter in {dname} on an "
+                 "input padded beforehand (pad not timed)")
+        xp = padded(x3, (17,) * 3)
+        corr_row(f"gaussian_filter 256^3 sigma=2 {dname}", x3, (g17,) * 3,
+                 composite(xp, [g17] * 3),
+                 f"composite: one 1-D cuDNN conv3d per axis in {dname} on an "
+                 "input padded beforehand (pad not timed; the dense 17^3 "
+                 "filter is 4913 taps)")
+        xp, w = padded(x2, (9, 9)), dense([u9] * 2)
+        corr_row(f"uniform_filter 4096^2 size=9 {dname}", x2, (tuple(u9),) * 2,
+                 lambda xp=xp, w=w: F.conv2d(xp, w),
+                 f"cuDNN conv2d with the dense 9x9 filter in {dname} on an "
+                 "input padded beforehand (pad not timed)")
+        xp, w = padded(x2, (3, 3)), dense([s3, d3])
+        corr_row(f"sobel 4096^2 {dname}", x2, (s3, d3),
+                 lambda xp=xp, w=w: F.conv2d(xp, w),
+                 f"cuDNN conv2d with the dense 3x3 filter in {dname} on an "
+                 "input padded beforehand (pad not timed)")
+        del xp, w
+        label = f"minimum_filter 256^3 size=5 {dname}"
+        args = (x3, (5,) * 3, (0,) * 3, ("reflect",) * 3, 0.0, True)
+        xp = padded(x3, (5,) * 3)[0, 0]
+        rows[label] = time_row(
+            label, lambda: fs.fused_separable_minmax(*args),
+            lambda: fs.fused_separable_minmax_ref(*args), x3,
+            bound(x3.numel(), minmax_ops=3 * 4, itemsize=2), 0,
+            (lambda xp=xp: pool(xp, 5, True), None),
+            f"torch max_pool3d stride 1 on -x in {dname}, negations timed, "
+            "on an input padded beforehand (pad not timed)", n_plain=10,
+            kernel="fused_separable_f32_kernel")
+        for label, x, size, opening in (
+                (f"grey_opening 256^3 size=5 {dname}", x3, 5, True),
+                (f"grey_closing 4096^2 size=5 {dname}", x2, 5, False)):
+            nd = x.ndim
+            sizes, zero = (size,) * nd, (0,) * nd
+            args = (x, sizes, zero, zero, ("reflect",) * nd, 0.0, opening)
+            xp = boundary.pad(x, [(size - 1, size - 1)] * nd, "reflect")
+            rows[label] = time_row(
+                label, lambda args=args: fs.fused_separable_open_close(*args),
+                lambda args=args: fs.fused_separable_open_close_ref(*args), x,
+                bound(x.numel(), minmax_ops=2 * nd * (size - 1), itemsize=2),
+                0, (lambda xp=xp, size=size, opening=opening: pool(
+                    pool(xp, size, opening), size, not opening), None),
+                f"composite: two torch max_pool{nd}d stride 1 in {dname} "
+                "(min as -max_pool(-x)) on an input padded beforehand by "
+                "both windows (pad not timed)", n_plain=10, kernel="morph_")
+        label = f"morphological_gradient 256^3 size=3 {dname}"
+        args = (x3, (3,) * 3, (0,) * 3, ("reflect",) * 3, 0.0, "grad")
+        xp = padded(x3, (3,) * 3)[0, 0]
+        rows[label] = time_row(
+            label, lambda: fs.fused_separable_morph_pair(*args),
+            lambda: fs.fused_separable_morph_pair_ref(*args), x3,
+            bound(x3.numel(), minmax_ops=2 * 3 * 2 + 1, itemsize=2), 0,
+            (lambda xp=xp: pool(xp, 3, False) - pool(xp, 3, True), None),
+            f"composite: torch max_pool3d for the max and -max_pool3d(-x) "
+            f"for the min in {dname}, then the difference, on an input "
+            "padded beforehand (pad not timed)", n_plain=10, kernel="morph_")
+        del xp
+        torch.cuda.empty_cache()
+    # each case's float32 twin, the same call on the same values in
+    # float32 (kernel alone): what the half type saves or costs
+    x3, x2 = dev(v["3"]), dev(v["2"])
+    r3, r2, z3, z2 = ("reflect",) * 3, ("reflect",) * 2, (0,) * 3, (0, 0)
+    twins = {
+        "uniform_filter 256^3 size=5": lambda: fs.fused_separable_correlate(
+            x3, (tuple(u5),) * 3, z3, r3, 0.0),
+        "gaussian_filter 256^3 sigma=2": lambda: fs.fused_separable_correlate(
+            x3, (g17,) * 3, z3, r3, 0.0),
+        "uniform_filter 4096^2 size=9": lambda: fs.fused_separable_correlate(
+            x2, (tuple(u9),) * 2, z2, r2, 0.0),
+        "sobel 4096^2": lambda: fs.fused_separable_correlate(
+            x2, (s3, d3), z2, r2, 0.0),
+        "minimum_filter 256^3 size=5": lambda: fs.fused_separable_minmax(
+            x3, (5,) * 3, z3, r3, 0.0, True),
+        "grey_opening 256^3 size=5": lambda: fs.fused_separable_open_close(
+            x3, (5,) * 3, z3, z3, r3, 0.0, True),
+        "grey_closing 4096^2 size=5": lambda: fs.fused_separable_open_close(
+            x2, (5,) * 2, z2, z2, r2, 0.0, False),
+        "morphological_gradient 256^3 size=3":
+            lambda: fs.fused_separable_morph_pair(x3, (3,) * 3, z3, r3, 0.0,
+                                                  "grad"),
+    }
+    twin_ms = {}
+    for base, launch in twins.items():
+        kname = ("morph_" if base.startswith(("grey", "morph")) else
+                 "rows_f32_kernel" if "4096^2" in base else
+                 "fused_separable_f32_kernel")
+        twin_ms[base] = kernel_ms(launch, kname)
+    del x3, x2
+    for label, row in rows.items():
+        base, row["dtype"] = label.rsplit(" ", 1)
+        row["float32_kernel_ms"] = twin_ms[base]
+        print(f"half path row {label:42s} ms {row['ms']:.4f} kernel_ms "
+              f"{row['kernel_ms']:.4f} (float32 {twin_ms[base]:.4f}) "
+              f"bound_ms {row['bound_ms']:.4f} plain_ms "
+              f"{row['plain_ms']:.3f} library_ms {row['library_ms']:.4f} "
+              f"copy_ms {row['copy_ms']:.4f}")
+    # the kernels line's half entries: each B1 entry in each type, its
+    # headline case and every timed case of it, its launches on this path
+    entries = []
+    card = card_line()
+    stencil = "cupyimg_tpu/ops/pallas_stencil.py"
+    shift_plans = (f"{stencil}:1388, {stencil}:1451 (_make_kernel_3d and "
+                   "_make_kernel_2d, the shift plans that half data takes; "
+                   f"_fused_separable, {stencil}:1034)")
+    per_type = len(HALF_TYPES)
+    for kname, counted, prefixes in (
+            ("fused_separable_correlate", (corr,),
+             ("uniform_filter 256", "gaussian_filter", "uniform_filter 4096",
+              "sobel")),
+            ("fused_separable_minmax", (mm,), ("minimum_filter",)),
+            ("fused_separable_morph", (oc, pair),
+             ("grey_opening", "grey_closing", "morphological_gradient"))):
+        for dname, _ in HALF_TYPES:
+            mine = [r for lb, r in rows.items() if r["dtype"] == dname
+                    and lb.startswith(prefixes)]
+            head = mine[0]
+            # one launch a call: the timed cases are this path's launches
+            n = sum(launches[k] for k in counted) // per_type
+            check(n == len(mine), f"{kname} {dname}: {n} launches, "
+                                  f"{len(mine)} timed cases")
+            entries.append({
+                "name": f"{kname} ({dname})",
+                "route": "cuda",
+                "source": "cupyimg_tpu_torch/csrc/fused_separable.cu",
+                "replaces": shift_plans,
+                "launches": n,
+                "max_abs_err": max(r["max_abs_err"] for r in mine),
+                "ms": head["ms"], "kernel_ms": head["kernel_ms"],
+                "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+                "bound_by": head["bound_by"],
+                "library_ms": head["library_ms"],
+                "library_call": head["library_call"],
+                "copy_ms": head["copy_ms"], "shape": head["case"],
+                "card": card, "dtype": dname,
+                "loss_ms": sum(r["kernel_ms"] - r["bound_ms"] for r in mine),
+                "loss_launches_timed": len(mine),
+                "cases": [{k: r[k] for k in (
+                    "case", "ms", "kernel_ms", "float32_kernel_ms", "plain_ms",
+                    "copy_ms", "bound_ms", "bound_by", "library_ms",
+                    "max_abs_err")} for r in mine],
+            })
+    del xs
+    torch.cuda.empty_cache()
+    return list(rows.values()), launches, entries
+
+
 def main():
     import torch
 
@@ -4994,6 +5413,10 @@ def main():
     check(par_launches.get("fft_rows", 0) + par_launches.get(
         "fft_strided", 0) >= 1, "fused_fft not launched on the parallel path")
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    half_rows, half_launches, half_entries = half_path(fs, ndi, sndi, torch,
+                                                       boundary)
+    print(f"half path: {time.perf_counter() - t0:.1f} s")
     print(f"phase 4 done at {time.perf_counter() - t_start:.1f} s")
 
     # -- phase 5: times -----------------------------------------------------
@@ -5348,6 +5771,7 @@ def main():
                       "registration_path": rg_rows,
                       "parallel_path": par_rows,
                       "parallel_path_gloo_probes": par_probes,
+                      "half_path": half_rows,
                       "end_to_end": [fft_e2e], "conv_methods": conv_methods}))
     stencil = "cupyimg_tpu/ops/pallas_stencil.py"
     kernels = [
@@ -5481,6 +5905,12 @@ def main():
             "fused_fft": par_launches.get("fft_rows", 0)
             + par_launches.get("fft_strided", 0),
         }.get(entry["name"], par_launches.get(entry["name"], 0))
+        # the half path: the float16 and bfloat16 instances of B1, whose
+        # own entries follow
+        entry["launches_half_path"] = {
+            "fused_separable_morph": half_launches["fused_separable_open_close"]
+            + half_launches["fused_separable_morph_pair"],
+        }.get(entry["name"], half_launches.get(entry["name"], 0))
     line[-1]["entries"] = [
         {k: rows[lb][k] for k in ("case", "ms", "kernel_ms", "plain_ms",
                                   "bound_ms", "bound_by", "library_ms",
@@ -5488,6 +5918,7 @@ def main():
         for lb in fft_labels]
     line[-1]["launches_by_entry"] = {k: sig_launches[k]
                                      for k in ("fft_rows", "fft_strided")}
+    line += half_entries
     print(f"wall: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,13 @@
   least float32/complex64.
 
 The policy is reckoned in numpy dtypes; :func:`to_torch` and
-:func:`to_numpy` cross between the two libraries.
+:func:`to_numpy` cross between the two libraries.  numpy has no
+bfloat16 (cupyimg_tpu gets one from ``ml_dtypes``, which the port does
+not use), so where a bfloat16 can appear the policy carries
+``torch.bfloat16`` itself: :func:`kind`, :func:`policy_dtype` and
+:func:`promote_types` take either library's dtypes, and promote
+bfloat16 as ``jnp.promote_types`` does (with float16 or float32 to
+float32, with float64 to float64, with an integer or bool to bfloat16).
 """
 
 from __future__ import annotations
@@ -31,13 +37,44 @@ _NP_TO_TORCH = {
     np.dtype(np.complex128): torch.complex128,
 }
 _TORCH_TO_NP = {v: k for k, v in _NP_TO_TORCH.items()}
+BF16 = torch.bfloat16
 
 
 def to_numpy(dtype) -> np.dtype:
-    """numpy dtype of a torch dtype or any numpy dtype-like."""
+    """numpy dtype of a torch dtype or any numpy dtype-like (never of
+    bfloat16, which numpy lacks: the policy keeps it a torch dtype)."""
     if isinstance(dtype, torch.dtype):
+        if dtype is BF16:
+            raise TypeError("bfloat16 has no numpy dtype")
         return _TORCH_TO_NP[dtype]
     return np.dtype(dtype)
+
+
+def host_numpy(t):
+    """A tensor as a host numpy array; bfloat16, which numpy lacks, as
+    float32, which holds its values."""
+    t = t.detach().cpu().resolve_conj()
+    return (t.float() if t.dtype is BF16 else t).numpy()
+
+
+def kind(dtype) -> str:
+    """numpy's kind character of a dtype of either library ("f" for
+    bfloat16)."""
+    return "f" if dtype is BF16 else to_numpy(dtype).kind
+
+
+def promote_types(a, b):
+    """numpy's ``promote_types`` for dtypes of either library, with
+    bfloat16 promoted as jnp promotes it; bfloat16 comes back as
+    ``torch.bfloat16``, every other result as a numpy dtype."""
+    if a is not BF16 and b is not BF16:
+        return np.promote_types(to_numpy(a), to_numpy(b))
+    other = b if a is BF16 else a
+    if other is BF16 or kind(other) in "biu":
+        return BF16
+    # bfloat16 joins float16 only in float32, and gives way to the rest
+    return np.promote_types(np.float32 if kind(other) == "f" else
+                            np.float16, to_numpy(other))
 
 
 def to_torch(dtype) -> torch.dtype:
@@ -48,9 +85,11 @@ def to_torch(dtype) -> torch.dtype:
 
 
 def promote_weights_dtype(input_dtype, weights_dtype, dtype_mode: str):
-    """Compute the numpy dtype used for the filter weights/accumulation."""
-    input_dtype = to_numpy(input_dtype)
-    weights_dtype = to_numpy(weights_dtype)
+    """Compute the numpy dtype used for the filter weights/accumulation
+    (bfloat16 data accumulates as float16 data does)."""
+    input_dtype = to_numpy(np.float16 if input_dtype is BF16 else input_dtype)
+    weights_dtype = to_numpy(
+        np.float16 if weights_dtype is BF16 else weights_dtype)
     is_complex = input_dtype.kind == "c" or weights_dtype.kind == "c"
     if dtype_mode == "ndimage":
         return np.dtype(np.complex128 if is_complex else np.float64)
@@ -71,42 +110,47 @@ def _real_dtype(dtype):
 
 
 def is_integer_dtype(dtype) -> bool:
-    return to_numpy(dtype).kind in "iu"
+    return kind(dtype) in "iu"
 
 
 def is_complex_dtype(dtype) -> bool:
-    return to_numpy(dtype).kind == "c"
+    return kind(dtype) == "c"
 
 
 def resolve_output_dtype(output, input_dtype, weights_dtype=None):
-    """Resolve the numpy output dtype of a filter call.
+    """Resolve the numpy output dtype of a filter call (a bfloat16 one as
+    ``torch.bfloat16``).
 
     ``output`` may be None (default: input dtype, promoted to complex if
     the weights are complex) or a dtype-like.  Every op returns a fresh
     tensor; passing a tensor or ndarray as ``output`` raises.
     """
-    input_dtype = to_numpy(input_dtype)
+    input_dtype = policy_dtype(input_dtype)
     if isinstance(output, (np.ndarray, torch.Tensor)):
         raise NotImplementedError(
             "cupyimg_tpu_torch is functional: preallocated `output` arrays "
             "are not supported; pass a dtype instead"
         )
     if weights_dtype is not None:
-        weights_dtype = to_numpy(weights_dtype)
         if output is None:
-            if weights_dtype.kind == "c":
-                return np.promote_types(input_dtype, np.complex64)
+            if kind(weights_dtype) == "c":
+                return promote_types(input_dtype, np.complex64)
             return input_dtype
-        out_dtype = to_numpy(output)
+        out_dtype = policy_dtype(output)
         if (
-            input_dtype.kind == "c" or weights_dtype.kind == "c"
-        ) and out_dtype.kind != "c":
+            kind(input_dtype) == "c" or kind(weights_dtype) == "c"
+        ) and kind(out_dtype) != "c":
             raise RuntimeError(
                 "output must have complex dtype if either the input or "
                 "weights are complex-valued."
             )
         return out_dtype
-    return input_dtype if output is None else to_numpy(output)
+    return input_dtype if output is None else policy_dtype(output)
+
+
+def policy_dtype(dtype):
+    """``dtype`` as the policy carries it: torch.bfloat16, else numpy."""
+    return BF16 if dtype is BF16 else to_numpy(dtype)
 
 
 #: the signed type that holds every value of an unsigned one: torch's

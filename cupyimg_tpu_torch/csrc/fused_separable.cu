@@ -1,6 +1,6 @@
 // Fused separable correlation, box minimum and box maximum of a 2-D or
-// 3-D float32 array, and the grey-morphology modes built on them, for
-// sm_90a.
+// 3-D float32, float16 or bfloat16 array, and the grey-morphology modes
+// built on them, for sm_90a.
 //
 // Replaces the TPU kernels of cupyimg_tpu/ops/pallas_stencil.py:
 // _fused_separable (all six 'corr' plans: _make_kernel_3d_lanemm padless
@@ -68,6 +68,20 @@
 // 4-row register window along axis 1 ran slower there).  Taps,
 // window leads, modes and tile sizes are runtime arguments: one build
 // serves every call.  PERF.md has the times.
+//
+// Element types: every kernel is templated on the type E it reads and
+// writes (the _f32 in the names is the type it computes in).  float16 and
+// bfloat16 arrays (the TPU kernel's shift plans keep their slab in the
+// input type and compute in it) are read as E, converted to float once on
+// read, folded in float32 with float32 taps and rounded to E once, at the
+// store.  The planes paths keep their input tiles in E in shared memory,
+// 16-byte cp.async chunks of 8 samples (ops/fused_separable.py:smem_bytes
+// counts them by element size); the rows paths convert each sample as it
+// is fetched into registers, so their stage buffers and rings stay float.
+// The bound halves with the element: 4 bytes a voxel moved, 67 MB for
+// 256^3 (20 us at 3.35 TB/s).  The source is compiled once per element
+// type (FS_PART: 0 float, 1 __half, 2 __nv_bfloat16; ops/_build.py:PARTS),
+// each part exporting its two C entries.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -230,11 +244,11 @@ __device__ __forceinline__ void fold_fixed(const float* w, int kind, Get get,
 }
 
 // The planes path (see the top of the file).
-template <int OP, int KZ>
+template <int OP, int KZ, class E>
 __global__ void __launch_bounds__(kBX * kBY)
-fused_separable_f32_kernel(const float* __restrict__ x,
-                           float* __restrict__ y,
+fused_separable_f32_kernel(const E* __restrict__ x, E* __restrict__ y,
                            const __grid_constant__ Params p) {
+  constexpr int V = 16 / sizeof(E);  // samples of a 16-byte chunk
   extern __shared__ __align__(16) float smem[];
   // every scalar is read from the parameter block once, into registers
   const int n0 = p.ax[0].n, n1 = p.ax[1].n, n2 = p.ax[2].n;
@@ -248,8 +262,8 @@ fused_separable_f32_kernel(const float* __restrict__ x,
   const int T1 = p.t1, TT = T1 * kT2;
   const int H1 = T1 + K1 - 1;   // halo'd tile rows
   const int H2 = kT2 + K2 - 1;  // halo'd tile columns
-  const int nch = (H2 + 3 + 3) >> 2;  // 16-byte chunks of a tile row
-  const int H2P = 4 * nch;            // words of a tile row
+  const int nch = (H2 + 2 * (V - 1)) / V;  // 16-byte chunks of a tile row
+  const int H2P = V * nch;                 // samples of a tile row
   // taps in shared memory: a uniform shared load is a broadcast
   float* w0 = smem;                 // 3 x kMaxTaps taps
   float* w1 = w0 + kMaxTaps;
@@ -258,8 +272,10 @@ fused_separable_f32_kernel(const float* __restrict__ x,
   // boundary on
   int* row_map = reinterpret_cast<int*>(w0 + 3 * kMaxTaps);  // H1
   int* col_map = row_map + H1;                                 // H2
-  float* s_in = w0 + 3 * kMaxTaps + (H1 + H2 + 3) / 4 * 4;  // kStages tiles
-  float* s_mid = s_in + kStages * H1 * H2P;  // H1 x kT2 after axis 2
+  E* s_in = reinterpret_cast<E*>(w0 + 3 * kMaxTaps +
+                                 (H1 + H2 + 3) / 4 * 4);  // kStages tiles
+  // H1 x kT2 after axis 2
+  float* s_mid = reinterpret_cast<float*>(s_in + kStages * H1 * H2P);
   float* ring = s_mid + H1 * kT2;            // K0 planes of T1 x kT2
 
   const int tiles2 = (n2 + kT2 - 1) / kT2;
@@ -269,7 +285,7 @@ fused_separable_f32_kernel(const float* __restrict__ x,
   const int z1 = min(z0 + p.z, n0);
   const int nplanes = z1 - z0 + K0 - 1;
   const int xs = o2 - lo2;
-  const int sh = xs - floor4(xs);
+  const int sh = xs - floor_to<V>(xs);
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int tid = ty * kBX + tx;
   for (int i = tid; i < 3 * kMaxTaps; i += kBX * kBY) {
@@ -303,14 +319,14 @@ fused_separable_f32_kernel(const float* __restrict__ x,
     issue(e + kStages - 1);
     __pipeline_wait_prior(kStages - 1);
     __syncthreads();
-    const float* tile = s_in + (e % kStages) * H1 * H2P + sh;
+    const E* tile = s_in + (e % kStages) * H1 * H2P + sh;
     for (int r = ty; r < H1; r += 2 * kBY) {
       const bool two = r + kBY < H1;
       const int dr = two ? kBY : 0;
-      const float* src = tile + r * H2P + tx;
+      const E* src = tile + r * H2P + tx;
       float v[4];
       fold<OP, 4>(w2, K2, kind2, [&](int k, int j) {
-        return src[(j >> 1) * dr * H2P + (j & 1) * kBX + k];
+        return to_f(src[(j >> 1) * dr * H2P + (j & 1) * kBX + k]);
       }, v);
       float* dst = s_mid + r * kT2 + tx;
       dst[0] = v[0];
@@ -333,15 +349,15 @@ fused_separable_f32_kernel(const float* __restrict__ x,
     }, v);
   };
   auto store = [&](int zo, const float (&out)[4]) {
-    float* dst = y + ((size_t)zo * n1 + o1 + r) * n2 + o2 + tx;
+    E* dst = y + ((size_t)zo * n1 + o1 + r) * n2 + o2 + tx;
     const bool c0 = o2 + tx < n2, c1 = o2 + tx + kBX < n2;
     if (o1 + r < n1) {
-      if (c0) dst[0] = out[0];
-      if (c1) dst[kBX] = out[1];
+      if (c0) dst[0] = from_f<E>(out[0]);
+      if (c1) dst[kBX] = from_f<E>(out[1]);
     }
     if (two && o1 + r + kBY < n1) {
-      if (c0) dst[(size_t)kBY * n2] = out[2];
-      if (c1) dst[(size_t)kBY * n2 + kBX] = out[3];
+      if (c0) dst[(size_t)kBY * n2] = from_f<E>(out[2]);
+      if (c1) dst[(size_t)kBY * n2 + kBX] = from_f<E>(out[3]);
     }
   };
   if constexpr (KZ == 0) {
@@ -524,15 +540,53 @@ __device__ __forceinline__ void vfold8(const float* w, int n,
   f.finish(w, out);
 }
 
+// A sample of a half type from its 16 bits, as a float: exact.
+template <class E>
+__device__ __forceinline__ float from_bits(unsigned b) {
+  if constexpr (std::is_same<E, __half>::value) {
+    return __half2float(__ushort_as_half((unsigned short)b));
+  } else {
+    return __uint_as_float(b << 16);
+  }
+}
+
+// Four samples of a row from column c on, as floats: one 16-byte load (8
+// bytes for the half types) where rows may be read in chunks and the four
+// lie inside the row, else each through the mode's index map (cval
+// outside a constant-mode axis).  The rows paths' loads.
+template <class E>
+__device__ __forceinline__ float4 fetch4(const E* __restrict__ row, int c,
+                                         int n2, int vec, int mode2,
+                                         float cval) {
+  if (vec && c >= 0 && c + 4 <= n2) {
+    if constexpr (sizeof(E) == 4) {
+      return __ldg(reinterpret_cast<const float4*>(row + c));
+    } else {
+      // sample 0 in the low half of the first word
+      const uint2 w = __ldg(reinterpret_cast<const uint2*>(row + c));
+      return make_float4(from_bits<E>(w.x & 0xffffu), from_bits<E>(w.x >> 16),
+                         from_bits<E>(w.y & 0xffffu), from_bits<E>(w.y >> 16));
+    }
+  }
+  float e4[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    bool o = false;
+    const int m2 = map_index(c + e, n2, mode2, o);
+    e4[e] = o ? cval : to_f(__ldg(row + m2));
+  }
+  return make_float4(e4[0], e4[1], e4[2], e4[3]);
+}
+
 // Block (bx, by) of a 2-D (n1, n2) array: columns [x0, x0 + 128), rows
 // [r0, r0 + t1).  Shared memory: the taps of both axes, one stage buffer
 // of 16 input rows, each deinterleaved by 8 (column 8u + e of the row,
 // counted from floor4(x0 - lo2), at word e * nu + u; nu is 2 modulo 4,
 // so the two rows a warp reads fall on disjoint banks), and a ring of
 // `ring_rows` horizontally filtered rows of 128.
-template <int OP>
+template <int OP, class E>
 __global__ void __launch_bounds__(kRowThreads, kRowBlocksPerSM)
-rows_f32_kernel(const float* __restrict__ x, float* __restrict__ y,
+rows_f32_kernel(const E* __restrict__ x, E* __restrict__ y,
                 const __grid_constant__ Params p) {
   extern __shared__ __align__(16) float rsmem[];
   const int n1 = p.ax[1].n, n2 = p.ax[2].n;
@@ -574,23 +628,9 @@ rows_f32_kernel(const float* __restrict__ x, float* __restrict__ y,
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int c = xa + 8 * ch + 4 * half;
-        float4 v = make_float4(cval, cval, cval, cval);
-        if (!oob) {
-          const float* row = x + (size_t)m1 * n2;
-          if (vec && c >= 0 && c + 4 <= n2) {
-            v = __ldg(reinterpret_cast<const float4*>(row + c));
-          } else {
-            float e4[4];
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              bool o = false;
-              const int m2 = map_index(c + e, n2, mode2, o);
-              e4[e] = o ? cval : __ldg(row + m2);
-            }
-            v = make_float4(e4[0], e4[1], e4[2], e4[3]);
-          }
-        }
-        pre[u][half] = v;
+        pre[u][half] = oob ? make_float4(cval, cval, cval, cval)
+                           : fetch4(x + (size_t)m1 * n2, c, n2, vec, mode2,
+                                    cval);
       }
     }
   };
@@ -648,35 +688,35 @@ rows_f32_kernel(const float* __restrict__ x, float* __restrict__ y,
         vfold8<OP, false>(w1, K1, ring + c, o % ring_rows, ring_rows, v);
       }
       if (x0 + c < n2) {
-        float* dst = y + (size_t)(r0 + o) * n2 + x0 + c;
+        E* dst = y + (size_t)(r0 + o) * n2 + x0 + c;
 #pragma unroll
         for (int j = 0; j < kRowNV; ++j) {
-          if (o + j < nrows) dst[(size_t)j * n2] = v[j];
+          if (o + j < nrows) dst[(size_t)j * n2] = from_f<E>(v[j]);
         }
       }
     }
   }
 }
 
-template <int OP>
-int launch(const float* x, float* y, const Params& p, const int* plan,
+template <int OP, class E>
+int launch(const E* x, E* y, const Params& p, const int* plan,
            void* stream) {
   const dim3 grid(plan[2], plan[3]);
   const int smem = plan[4];
   if (plan[5]) {
     cudaError_t err = cudaFuncSetAttribute(
-        rows_f32_kernel<OP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        rows_f32_kernel<OP, E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);
     if (err != cudaSuccess) return (int)err;
-    rows_f32_kernel<OP><<<grid, kRowThreads, smem, (cudaStream_t)stream>>>(
-        x, y, p);
+    rows_f32_kernel<OP, E><<<grid, kRowThreads, smem,
+                             (cudaStream_t)stream>>>(x, y, p);
     return (int)cudaGetLastError();
   }
   // the axis-0 windows of the main path's filters (3 and 5) in registers
   const int k0 = p.ax[0].ntaps;
-  auto kernel = k0 == 3   ? fused_separable_f32_kernel<OP, 3>
-                : k0 == 5 ? fused_separable_f32_kernel<OP, 5>
-                          : fused_separable_f32_kernel<OP, 0>;
+  auto kernel = k0 == 3   ? fused_separable_f32_kernel<OP, 3, E>
+                : k0 == 5 ? fused_separable_f32_kernel<OP, 5, E>
+                          : fused_separable_f32_kernel<OP, 0, E>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -865,10 +905,15 @@ __device__ __forceinline__ void hfold_stage(const float* rb, int nu, int K,
 // 7 or 9, the samples as aligned float4 chunks into registers (a warp's
 // lanes, four columns apart, read them without bank conflicts, where
 // scalar loads four words apart conflict 4 ways) and the fold unrolled;
-// otherwise by run_fold from shared memory.
-template <class Op>
-__device__ __forceinline__ void run4(int K, const float* s, bool aligned,
+// otherwise by run_fold from shared memory (the half types' tiles always
+// so, each sample converted as it is read).
+template <class Op, class E>
+__device__ __forceinline__ void run4(int K, const E* s, bool aligned,
                                      typename Op::T (&v)[4]) {
+  if constexpr (sizeof(E) != 4) {
+    run_fold<Op, 4>(K, [&](int m) { return Op::from(to_f(s[m])); }, v);
+    return;
+  } else {
   auto fixed = [&](auto kc) {
     constexpr int Kc = decltype(kc)::value;
     constexpr int NC = (Kc + 6) / 4;  // chunks of the K + 3 samples
@@ -891,6 +936,7 @@ __device__ __forceinline__ void run4(int K, const float* s, bool aligned,
     default:
       run_fold<Op, 4>(K, [&](int m) { return Op::from(s[m]); }, v);
   }
+  }
 }
 
 // v[0..3] to the 16-byte aligned dst, as float4 stores.
@@ -904,14 +950,15 @@ __device__ __forceinline__ void store4(float2* dst, const float2 (&v)[4]) {
   d[1] = make_float4(v[2].x, v[2].y, v[3].x, v[3].y);
 }
 
-// The pair's output from its (min, max) fold: each operation rounded on
-// its own (no contraction into an FMA), as the plain version computes it.
-template <int KIND>
-__device__ __forceinline__ float combine(float2 mm, const float* x,
-                                         size_t i) {
-  return KIND == kGrad
-             ? __fsub_rn(mm.y, mm.x)
-             : __fsub_rn(__fadd_rn(mm.y, mm.x), __fmul_rn(2.0f, x[i]));
+// The pair's output from its (min, max) fold, in E: each operation
+// rounded on its own in float32 (no contraction into an FMA), then to E,
+// as the plain version computes it.
+template <int KIND, class E>
+__device__ __forceinline__ E combine(float2 mm, const E* x, size_t i) {
+  return from_f<E>(
+      KIND == kGrad
+          ? __fsub_rn(mm.y, mm.x)
+          : __fsub_rn(__fadd_rn(mm.y, mm.x), __fmul_rn(2.0f, to_f(x[i]))));
 }
 
 // The two-stage contract (ops/fused_separable.py:
@@ -941,9 +988,9 @@ __device__ __forceinline__ float combine(float2 mm, const float* x,
 //   halo; three barriers a step;
 // - pair: one ring of (min, max) pairs, 16 (lag + 2) rows of 128; one
 //   barrier a step.
-template <int KIND>
+template <int KIND, class E>
 __global__ void __launch_bounds__(kRowThreads, kMorphRowBlocksPerSM<KIND>)
-morph_rows_f32_kernel(const float* __restrict__ x, float* __restrict__ y,
+morph_rows_f32_kernel(const E* __restrict__ x, E* __restrict__ y,
                       const __grid_constant__ MorphParams p) {
   constexpr bool kTwo = KIND == kOpening || KIND == kClosing;
   using Op1 = typename MorphOps<KIND>::First;
@@ -999,23 +1046,9 @@ morph_rows_f32_kernel(const float* __restrict__ x, float* __restrict__ y,
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int col = xa + 8 * ch + 4 * h;
-        float4 v = make_float4(cval, cval, cval, cval);
-        if (!oob) {
-          const float* row = x + (size_t)m1 * n2;
-          if (vec && col >= 0 && col + 4 <= n2) {
-            v = __ldg(reinterpret_cast<const float4*>(row + col));
-          } else {
-            float e4[4];
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              bool o = false;
-              const int m2 = map_index(col + e, n2, mode2, o);
-              e4[e] = o ? cval : __ldg(row + m2);
-            }
-            v = make_float4(e4[0], e4[1], e4[2], e4[3]);
-          }
-        }
-        pre[u][h] = v;
+        pre[u][h] = oob ? make_float4(cval, cval, cval, cval)
+                        : fetch4(x + (size_t)m1 * n2, col, n2, vec, mode2,
+                                 cval);
       }
     }
   };
@@ -1066,10 +1099,10 @@ morph_rows_f32_kernel(const float* __restrict__ x, float* __restrict__ y,
             return ring_at(ring2, ring_rows, base, m);
           }, v);
           if (col_out) {
-            float* dst = y + (size_t)(r0 + o) * n2 + x0 + c;
+            E* dst = y + (size_t)(r0 + o) * n2 + x0 + c;
 #pragma unroll
             for (int j = 0; j < 8; ++j) {
-              if (o + j < nrows) dst[(size_t)j * n2] = v[j];
+              if (o + j < nrows) dst[(size_t)j * n2] = from_f<E>(v[j]);
             }
           }
         }
@@ -1167,9 +1200,9 @@ morph_rows_f32_kernel(const float* __restrict__ x, float* __restrict__ y,
 // its axis-0 window, whose fold is an output plane.  KZ: the axis-0 window in registers (K0 == KZ: 1, 3 or
 // 5; the plane loop unrolled by KZ, so that every window index is a
 // constant), or 0: rings of K0 planes in shared memory.
-template <int KIND, int KZ>
+template <int KIND, int KZ, class E>
 __global__ void __launch_bounds__(kBX * kBY, kMorphBlocksPerSM<KIND>)
-morph_planes_f32_kernel(const float* __restrict__ x, float* __restrict__ y,
+morph_planes_f32_kernel(const E* __restrict__ x, E* __restrict__ y,
                         const __grid_constant__ MorphParams p) {
   constexpr bool kTwo = KIND == kOpening || KIND == kClosing;
   using Op1 = typename MorphOps<KIND>::First;
@@ -1179,6 +1212,7 @@ morph_planes_f32_kernel(const float* __restrict__ x, float* __restrict__ y,
   constexpr int L = kMorphL;
   constexpr int NI = kTwo ? kMorphItems : 1;  // stage-1 items in registers
   constexpr int KW = KZ > 0 ? KZ : 1;
+  constexpr int V = 16 / sizeof(E);  // samples of a 16-byte chunk
   extern __shared__ __align__(16) float smem[];
   const int n0 = p.n[0], n1 = p.n[1], n2 = p.n[2];
   const int K0 = p.k[0], K1 = p.k[1], K2 = p.k[2];
@@ -1189,13 +1223,13 @@ morph_planes_f32_kernel(const float* __restrict__ x, float* __restrict__ y,
   const int W1 = kTwo ? T1 + K1 - 1 : T1, W2 = kTwo ? kT2 + K2 - 1 : kT2;
   const int runs2 = (W2 + L - 1) / L, W2P = L * runs2;
   const int H1 = W1 + K1 - 1, H2 = W2 + K2 - 1;
-  const int nch = (H2 + 6) >> 2, H2P = 4 * nch;
+  const int nch = (H2 + 2 * (V - 1)) / V, H2P = V * nch;
   const int lead0 = p.lo1[0] + (kTwo ? p.lo2[0] : 0);
   const int lead1 = p.lo1[1] + (kTwo ? p.lo2[1] : 0);
   const int lead2 = p.lo1[2] + (kTwo ? p.lo2[2] : 0);
   int* row_map = reinterpret_cast<int*>(smem);  // H1
   int* col_map = row_map + H1;                  // H2
-  float* s_in = smem + (H1 + H2 + 3) / 4 * 4;   // stages tiles, H1 x H2P
+  E* s_in = reinterpret_cast<E*>(smem + (H1 + H2 + 3) / 4 * 4);  // stages tiles, H1 x H2P
   // after axis 2: H1 rows, and L rows that runs past the end may read
   T* s_a = reinterpret_cast<T*>(s_in + stages * H1 * H2P);
   float* s_p = reinterpret_cast<float*>(s_a + (H1 + L) * W2P);  // W1 x W2P
@@ -1215,7 +1249,8 @@ morph_planes_f32_kernel(const float* __restrict__ x, float* __restrict__ y,
   const int z1 = min(z0 + p.z, n0);
   const int nplanes = z1 - z0 + (kTwo ? 2 : 1) * (K0 - 1);
   const int xs = o2 - lead2;
-  const int sh = xs - floor4(xs);  // 0 where the planner shifted the tiles
+  // 0 where the planner shifted the tiles (float: chunks of 4 samples)
+  const int sh = xs - floor_to<V>(xs);
   const int tid = threadIdx.y * kBX + threadIdx.x;
   build_maps(row_map, H1, o1 - lead1, n1, p.mode[1], H2, xs, n2, p.mode[2]);
   __syncthreads();
@@ -1241,7 +1276,7 @@ morph_planes_f32_kernel(const float* __restrict__ x, float* __restrict__ y,
   };
   // the axis-2 fold of stage 1 (the pair: both) over the tile's rows, a
   // run of L columns a thread (run4; the run past W2 is discarded)
-  auto axis2_first = [&](const float* tile) {
+  auto axis2_first = [&](const E* tile) {
     const int dr = kThreads / runs2, dq = kThreads - dr * runs2;
     int r = tid / runs2, q = tid - r * runs2;
     for (int i = tid; i < H1 * runs2; i += kThreads) {
@@ -1278,7 +1313,7 @@ morph_planes_f32_kernel(const float* __restrict__ x, float* __restrict__ y,
     if (r < T1 && o1 + r < n1 && o2 + cc >= 0 && o2 + cc < n2) {
       const size_t i = ((size_t)zo * n1 + o1 + r) * n2 + o2 + cc;
       if constexpr (std::is_same<decltype(v), float>::value) {
-        y[i] = v;  // stage 2's value
+        y[i] = from_f<E>(v);  // stage 2's value
       } else {
         y[i] = combine<KIND>(v, x, i);  // the pair's (min, max)
       }
@@ -1429,9 +1464,9 @@ morph_planes_f32_kernel(const float* __restrict__ x, float* __restrict__ y,
   }
 }
 
-template <class Kernel>
+template <class Kernel, class E>
 int start(Kernel kernel, dim3 grid, dim3 block, int smem, void* stream,
-          const float* x, float* y, const MorphParams& p) {
+          const E* x, E* y, const MorphParams& p) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -1439,43 +1474,41 @@ int start(Kernel kernel, dim3 grid, dim3 block, int smem, void* stream,
   return (int)cudaGetLastError();
 }
 
-template <int KIND>
-int launch_morph(const float* x, float* y, const MorphParams& p,
-                 const int* plan, void* stream) {
+template <int KIND, class E>
+int launch_morph(const E* x, E* y, const MorphParams& p, const int* plan,
+                 void* stream) {
   const dim3 grid(plan[2], plan[3]);
   const int smem = plan[4];
   if (plan[5]) {
-    return start(morph_rows_f32_kernel<KIND>, grid, dim3(kRowThreads), smem,
-                 stream, x, y, p);
+    return start(morph_rows_f32_kernel<KIND, E>, grid, dim3(kRowThreads),
+                 smem, stream, x, y, p);
   }
   const dim3 block(kBX, kBY);
   switch (plan[8]) {
     case 1:
-      return start(morph_planes_f32_kernel<KIND, 1>, grid, block, smem,
+      return start(morph_planes_f32_kernel<KIND, 1, E>, grid, block, smem,
                    stream, x, y, p);
     case 3:
-      return start(morph_planes_f32_kernel<KIND, 3>, grid, block, smem,
+      return start(morph_planes_f32_kernel<KIND, 3, E>, grid, block, smem,
                    stream, x, y, p);
     case 5:
-      return start(morph_planes_f32_kernel<KIND, 5>, grid, block, smem,
+      return start(morph_planes_f32_kernel<KIND, 5, E>, grid, block, smem,
                    stream, x, y, p);
     default:
-      return start(morph_planes_f32_kernel<KIND, 0>, grid, block, smem,
+      return start(morph_planes_f32_kernel<KIND, 0, E>, grid, block, smem,
                    stream, x, y, p);
   }
 }
-
-}  // namespace
 
 // dims: n0, n1, n2.  taps: 3 x 64 floats (unused by min/max).
 // axis_info: 3 x (ntaps, lo, mode, kind).  plan: t1, z, grid_x, grid_y,
 // shared bytes, path (0 planes, 1 rows), vec (rows may be read in
 // 16-byte chunks).  op: 0 correlate, 1 minimum, 2 maximum.
 // Returns the cudaError_t of the attribute call or of the launch.
-extern "C" int fused_separable_f32(const float* x, float* y, const int* dims,
-                                   const float* taps, const int* axis_info,
-                                   float cval, const int* plan, int op,
-                                   void* stream) {
+template <class E>
+int separable(const E* x, E* y, const int* dims, const float* taps,
+              const int* axis_info, float cval, const int* plan, int op,
+              void* stream) {
   Params p;
   for (int a = 0; a < 3; ++a) {
     Axis& ax = p.ax[a];
@@ -1504,11 +1537,9 @@ extern "C" int fused_separable_f32(const float* x, float* y, const int* dims,
 // register window (1, 3 or 5; 0: rings), t2, shift.  kind: 0 opening, 1
 // closing, 2 gradient, 3 laplace.  Returns the cudaError_t of the
 // attribute call or of the launch.
-extern "C" int fused_separable_morph_f32(const float* x, float* y,
-                                         const int* dims,
-                                         const int* axis_info, float cval,
-                                         const int* plan, int kind,
-                                         void* stream) {
+template <class E>
+int morph(const E* x, E* y, const int* dims, const int* axis_info,
+          float cval, const int* plan, int kind, void* stream) {
   MorphParams p;
   for (int a = 0; a < 3; ++a) {
     p.n[a] = dims[a];
@@ -1532,3 +1563,31 @@ extern "C" int fused_separable_morph_f32(const float* x, float* y,
     default: return (int)cudaErrorInvalidValue;
   }
 }
+
+}  // namespace
+
+// The C entries of one element type: fused_separable_<suffix> (cval is
+// the value the type holds, as a float) and fused_separable_morph_<suffix>.
+#define FS_ENTRIES(E, SUFFIX)                                               \
+  extern "C" int fused_separable_##SUFFIX(                                  \
+      const E* x, E* y, const int* dims, const float* taps,                \
+      const int* axis_info, float cval, const int* plan, int op,           \
+      void* stream) {                                                       \
+    return separable<E>(x, y, dims, taps, axis_info, cval, plan, op,        \
+                        stream);                                            \
+  }                                                                         \
+  extern "C" int fused_separable_morph_##SUFFIX(                            \
+      const E* x, E* y, const int* dims, const int* axis_info, float cval, \
+      const int* plan, int kind, void* stream) {                            \
+    return morph<E>(x, y, dims, axis_info, cval, plan, kind, stream);       \
+  }
+
+#if !defined(FS_PART) || FS_PART == 0
+FS_ENTRIES(float, f32)
+#endif
+#if !defined(FS_PART) || FS_PART == 1
+FS_ENTRIES(__half, f16)
+#endif
+#if !defined(FS_PART) || FS_PART == 2
+FS_ENTRIES(__nv_bfloat16, bf16)
+#endif

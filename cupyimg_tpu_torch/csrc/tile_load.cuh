@@ -1,16 +1,38 @@
-// Loading a halo'd 2-D tile of one plane of a float32 array into shared
-// memory with the ndimage mode applied in the load, shared by the planes
-// kernels of csrc/ (blocks of 32 x 8 threads): the interior of a row in
-// 16-byte cp.async chunks, only the samples at an edge through the index
-// maps (boundary.cuh).
+// Loading a halo'd 2-D tile of one plane of an array into shared memory
+// with the ndimage mode applied in the load, shared by the planes kernels
+// of csrc/ (blocks of 32 x 8 threads): the interior of a row in 16-byte
+// cp.async chunks, only the samples at an edge through the index maps
+// (boundary.cuh).  The tile keeps the array's element type: float, or
+// __half / __nv_bfloat16 (8 samples a chunk), which the kernels convert
+// to float as they read it (to_f).
 #pragma once
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_pipeline.h>
 #include <stddef.h>
 
 #include "boundary.cuh"
 
 namespace {
+
+// float <-> the element types, rounding to nearest even
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <class E> __device__ __forceinline__ E from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) {
+  return v;
+}
+template <> __device__ __forceinline__ __half from_f<__half>(float v) {
+  return __float2half_rn(v);
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
 
 constexpr int kLoadBX = 32;        // threads along a row of the block
 constexpr int kLoadThreads = 256;  // threads of the block
@@ -20,6 +42,12 @@ constexpr int kLoadThreads = 256;  // threads of the block
 // needs), so sample c of the tile (c >= 0 from xs) is at xs - xa + c.
 __device__ __forceinline__ int floor4(int v) {
   return v >= 0 ? (v & ~3) : -((3 - v) & ~3);
+}
+
+// v rounded down to a multiple of V, a power of two (floor4 for V = 4)
+template <int V>
+__device__ __forceinline__ int floor_to(int v) {
+  return v >= 0 ? (v & ~(V - 1)) : -((V - 1 - v) & ~(V - 1));
 }
 
 // The source row and column of every row and column of a halo'd tile:
@@ -40,47 +68,54 @@ __device__ __forceinline__ void build_maps(int* row_map, int h1, int r0,
 }
 
 // Start the copies of the halo'd tile of input plane i0 (an axis-0
-// index, mapped here by mode0) into buf (h1 rows of 4 * nch words, row r
-// from column xa = floor4(xs) on, xs the tile's first column): a 16-byte
-// chunk inside the row as one cp.async where rows may be read so, every
-// other sample through the column map (col_map[c] for column xs + c, -1
-// for cval) as a 4-byte cp.async or a cval store.  Samples left of xs or
-// right of the tile's h2 columns are never read (set to 0).  The caller
-// commits the group.
+// index, mapped here by mode0) into buf (h1 rows of V * nch samples, V =
+// 16 / sizeof(E) a chunk, row r from column xa = floor_to<V>(xs) on, xs
+// the tile's first column): a 16-byte chunk inside the row as one
+// cp.async where rows may be read so, every other sample through the
+// column map (col_map[c] for column xs + c, -1 for cval) as a 4-byte
+// cp.async (a 2-byte sample, which cp.async cannot copy, as a load and a
+// store) or a cval store (cval converted to E once).  Samples left of xs
+// or right of the tile's h2 columns are never read (set to 0).  The
+// caller commits the group.
+template <class E>
 __device__ __forceinline__ void load_plane16(
-    const float* __restrict__ x, float* buf, int i0, int n0, int mode0,
+    const E* __restrict__ x, E* buf, int i0, int n0, int mode0,
     int n1, int n2, const int* row_map, const int* col_map, int h1, int h2,
     int nch, int xs, int vec, float cval) {
+  constexpr int V = 16 / sizeof(E);
   bool oob0 = false;
   const int m0 = map_index(i0, n0, mode0, oob0);
-  const float* plane = x + (size_t)m0 * n1 * n2;
-  const int xa = floor4(xs);
+  const E* plane = x + (size_t)m0 * n1 * n2;
+  const int xa = floor_to<V>(xs);
+  const E cv = from_f<E>(cval);
   for (int i = threadIdx.y * kLoadBX + threadIdx.x; i < h1 * nch;
        i += kLoadThreads) {
     const int r = i / nch, ch = i - r * nch;
     const int m1 = oob0 ? -1 : row_map[r];
-    float* dst = buf + r * 4 * nch + 4 * ch;
+    E* dst = buf + r * V * nch + V * ch;
     if (m1 < 0) {
-      dst[0] = cval;
-      dst[1] = cval;
-      dst[2] = cval;
-      dst[3] = cval;
+#pragma unroll
+      for (int e = 0; e < V; ++e) dst[e] = cv;
       continue;
     }
-    const float* row = plane + (size_t)m1 * n2;
-    const int c = xa + 4 * ch;
-    if (vec && c >= 0 && c + 4 <= n2) {
+    const E* row = plane + (size_t)m1 * n2;
+    const int c = xa + V * ch;
+    if (vec && c >= 0 && c + V <= n2) {
       __pipeline_memcpy_async(dst, row + c, 16);
       continue;
     }
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
+    for (int e = 0; e < V; ++e) {
       const int t = c + e - xs;
       const int m2 = t >= 0 && t < h2 ? col_map[t] : -2;
       if (m2 >= 0) {
-        __pipeline_memcpy_async(dst + e, row + m2, sizeof(float));
+        if constexpr (sizeof(E) == 4) {
+          __pipeline_memcpy_async(dst + e, row + m2, sizeof(E));
+        } else {
+          dst[e] = row[m2];
+        }
       } else {
-        dst[e] = m2 == -1 ? cval : 0.f;
+        dst[e] = m2 == -1 ? cv : from_f<E>(0.f);
       }
     }
   }

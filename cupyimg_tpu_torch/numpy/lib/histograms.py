@@ -85,14 +85,17 @@ def _edges(columns, bins, ranges):
             if np.ndim(b) == 0 and r is None and columns[i].numel() > 0]
     lims = {}
     if need:
-        mm = torch.stack([torch.stack(torch.aminmax(_order_keys(columns[i])))
-                          for i in need]).cpu().numpy()
+        mm = dtypes.host_numpy(torch.stack([
+            torch.stack(torch.aminmax(_order_keys(columns[i])))
+            for i in need]))
         lims = {i: (np.bitwise_xor(m, np.int64(_SIGN)).view(np.uint64)
                     if columns[i].dtype == torch.uint64 else m)
                 for i, m in zip(need, mm)}
     out = []
     for i, (col, b, r) in enumerate(zip(columns, bins, ranges)):
-        np_dt = dtypes.to_numpy(col.dtype)
+        bf16 = col.dtype == torch.bfloat16
+        # bfloat16 (no numpy dtype) as float32, which holds its values
+        np_dt = np.float32 if bf16 else dtypes.to_numpy(col.dtype)
         if np.ndim(b) == 1:
             e = np.asarray(b)
             if e.size > 1 and np.any(e[:-1] > e[1:]):
@@ -105,8 +108,32 @@ def _edges(columns, bins, ranges):
         # numpy's edges from a stand-in holding the data's extremes
         stand_in = (lims[i].astype(np_dt) if i in lims
                     else np.zeros(0, np_dt))
-        out.append(np.histogram_bin_edges(stand_in, b, r))
+        e = np.histogram_bin_edges(stand_in, b, r)
+        if bf16 and i in lims and r is None:
+            e = _bf16_edges(stand_in, int(b))
+        out.append(e)
     return out
+
+
+def _bf16_edges(lims, n):
+    """The ``n``-bin edges between bfloat16 data's extremes (as float32
+    values) as cupyimg_tpu computes them: ``lo + i * step`` in float32,
+    rounded to bfloat16 once (numpy with ``ml_dtypes`` would round each
+    operation); edges from ``range`` or of empty data are numpy's."""
+    lo, hi = (torch.tensor(float(v), dtype=torch.bfloat16) for v in lims)
+    if lo == hi:
+        lo, hi = lo - 0.5, hi + 0.5
+    lo, hi = lo.float(), hi.float()
+    y = (lo + torch.arange(n + 1, dtype=torch.float32) * ((hi - lo) / n))
+    y[-1] = hi
+    return y.to(torch.bfloat16).float().numpy()
+
+
+def _edge_tensor(e, col):
+    """Edges of a column as a tensor beside it, in bfloat16 for bfloat16
+    data (numpy's bin type)."""
+    t = torch.as_tensor(e, device=col.device)
+    return t.to(torch.bfloat16) if col.dtype == torch.bfloat16 else t
 
 
 def _bin_index(x, edges_t, n_bins):
@@ -163,12 +190,14 @@ def histogram(x, bins=10, range=None, weights=None, density=False):
     bins = _host_bins(bins)
     (edges,) = _edges([x], [bins], [range])
     n_bins = edges.shape[0] - 1
-    edges_t = torch.as_tensor(edges, device=x.device)
+    edges_t = _edge_tensor(edges, x)
     idx, valid = _bin_index(x, edges_t, n_bins)
     y = _count(idx, valid, n_bins, weights)
     if density:
-        db = torch.as_tensor(np.diff(edges).astype(np.float64),
-                             device=x.device)
+        # bfloat16 edges' widths in bfloat16, as cupyimg_tpu takes them
+        db = (torch.diff(edges_t).double() if x.dtype == torch.bfloat16 else
+              torch.as_tensor(np.diff(edges).astype(np.float64),
+                              device=x.device))
         return y / db / y.sum(), edges_t
     return y, edges_t
 
@@ -214,7 +243,7 @@ def histogramdd(sample, bins=10, range=None, weights=None, density=False):
     columns = [sample[:, i] for i in np.arange(D)]
     edges = _edges(columns, bins, range)
     n_bins = [e.shape[0] - 1 for e in edges]
-    edges_t = [torch.as_tensor(e, device=sample.device) for e in edges]
+    edges_t = [_edge_tensor(e, c) for e, c in zip(edges, columns)]
     flat = torch.zeros(N, dtype=torch.int64, device=sample.device)
     valid = torch.ones(N, dtype=torch.bool, device=sample.device)
     for col, e, nb in zip(columns, edges_t, n_bins):

@@ -40,8 +40,10 @@ EXTRA_FLAGS = {"spline_gather": ["-fmad=false"]}
 # parts in parallel: the gather's instances of one (data type, coordinate
 # type, components) each; the rank kernel's compile-time instances spread
 # by their unrolled size (ops/fused_rank.py:INSTANCE_PARTS, the generic
-# instance in part 0)
-PARTS = {"spline_gather": ("SG_PART", 8), "fused_rank": ("RN_PART", 4)}
+# instance in part 0); the separable kernel's element types (float32,
+# float16, bfloat16)
+PARTS = {"spline_gather": ("SG_PART", 8), "fused_rank": ("RN_PART", 4),
+         "fused_separable": ("FS_PART", 3)}
 #: the order builds start in, the longest first (on an H100 machine of 8
 #: processors: the gather's parts 45-90 s each, the FFT about 30, the
 #: separable kernel about 20, the rank kernel's parts about 20, the dense

@@ -4,10 +4,14 @@ planner and its plain PyTorch versions.
 The counterpart of the separable half of ``cupyimg_tpu/ops/pallas_stencil.py``
 (``fused_separable_correlate`` and ``fused_separable_minmax`` ->
 ``_fused_separable``).  Per-axis 1-D correlations, or per-axis running
-minima/maxima, of a 2-D/3-D float32 array run in ONE pass over device
+minima/maxima, of a 2-D/3-D array run in ONE pass over device
 memory (``csrc/fused_separable.cu``, one kernel templated on the op): the
 input is boundary-extended once, inside the kernel's loads, each axis with
 its own mode, and a constant mode on any axis gives the shared ``cval``.
+On a CUDA tensor the kernel also takes float16 and bfloat16 (the TPU
+kernel's shift plans take every float of at most 4 bytes): it reads the
+half type, computes in float32 with float32 taps and writes the half
+type, rounding once; the plain versions compute the same function.
 
 Two further modes serve grey morphology over flat box windows, each in
 one launch: two-stage (:func:`fused_separable_open_close`, min then max
@@ -85,6 +89,11 @@ MORPH_STAGES = (4, 2, 1)
 _MORPH_BLOCKS = {"open_close": 2 * 132, "pair": 3 * 132}
 _MORPH_ROW_BLOCKS = {"open_close": 4 * 132, "pair": 3 * 132}
 
+#: the element types the kernel takes, with the suffix of their C entries;
+#: the source is built once per type, in this order (ops/_build.py:PARTS)
+_ENTRY = {torch.float32: "f32", torch.float16: "f16", torch.bfloat16: "bf16"}
+HALF = (torch.float16, torch.bfloat16)
+
 _MODE_CODES = {
     "reflect": 0, "grid-mirror": 0,
     "mirror": 1,
@@ -99,12 +108,12 @@ _MORPH_KINDS = {"opening": 0, "closing": 1, "grad": 2, "laplace": 3}
 
 
 def supports(x, weights):
-    """Whether the fused kernel applies: a CUDA float32 tensor, 2-D or
-    3-D, at most 64 taps per axis."""
+    """Whether the fused kernel applies: a CUDA float32, float16 or
+    bfloat16 tensor, 2-D or 3-D, at most 64 taps per axis."""
     return (
         isinstance(x, torch.Tensor)
         and x.is_cuda
-        and x.dtype == torch.float32
+        and x.dtype in _ENTRY
         and x.ndim in (2, 3)
         and all(w is None or len(w) <= MAX_TAPS for w in weights)
     )
@@ -139,7 +148,9 @@ class Plan:
     planes path's; the morphology modes' tiles and strips start ``shift``
     columns left of column 0 (minus the input's lead along axis 2, modulo
     4; the planes path only where that adds no tile), so that each input
-    tile starts on a 16-byte boundary.
+    tile starts on a 16-byte boundary.  ``itemsize`` is the element's
+    bytes (4, or 2 for the half types), which the planes paths' input
+    tiles hold.
     """
 
     shape: tuple
@@ -153,6 +164,7 @@ class Plan:
     stages: int = STAGES
     window: int = 0
     shift: int = 0
+    itemsize: int = 4
 
     @property
     def tiles2(self):
@@ -171,10 +183,12 @@ class Plan:
         )
 
 
-def _row_chunks(k2, t2):
-    """16-byte chunks of a halo'd tile row of ``t2 + k2 - 1`` samples
-    from any alignment (``nch`` in the planes kernel)."""
-    return (t2 + k2 - 1 + 6) // 4
+def _row_chunks(h2, itemsize=4):
+    """16-byte chunks of a halo'd tile row of ``h2`` samples of
+    ``itemsize`` bytes from any alignment (``nch`` in the planes
+    kernels)."""
+    v = 16 // itemsize  # samples a chunk
+    return (h2 + 2 * (v - 1)) // v
 
 
 def _row_units(k2):
@@ -200,8 +214,11 @@ def _morph_units(k2):
 
 
 def smem_bytes(ntaps, t1, t2=T2, mode="separable", stages=STAGES,
-               window=0):
-    """Shared memory of one block, in bytes (4-byte words).
+               window=0, itemsize=4):
+    """Shared memory of one block, in bytes: 4-byte words, and the
+    planes paths' input tiles in 16-byte chunks of ``itemsize``-byte
+    samples (the rows paths convert their input rows to float32 as they
+    read them).
 
     ``mode="separable"`` (the planes path): the taps, the row and column
     index maps, STAGES halo'd input tiles (rows of 16-byte chunks), the
@@ -239,7 +256,7 @@ def smem_bytes(ntaps, t1, t2=T2, mode="separable", stages=STAGES,
             w1, w2 = t1, t2
         h1, h2 = w1 + k1 - 1, w2 + k2 - 1
         maps = (h1 + h2 + 3) // 4 * 4
-        tiles = stages * h1 * 4 * ((h2 + 6) // 4)
+        tiles = stages * h1 * 4 * _row_chunks(h2, itemsize)  # words
         if mode == "pair":
             ring = 0 if window else 2 * k0 * t1 * t2
             return 4 * (maps + tiles + 2 * (h1 + MORPH_L) * t2 + ring)
@@ -255,8 +272,8 @@ def smem_bytes(ntaps, t1, t2=T2, mode="separable", stages=STAGES,
         raise ValueError(f"unknown kernel mode {mode!r}")
     maps = (h1 + h2 + 3) // 4 * 4
     ring = 0 if k0 in REGISTER_WINDOWS else k0 * t1 * t2
-    return 4 * (3 * MAX_TAPS + maps + STAGES * h1 * 4 * _row_chunks(k2, t2)
-                + h1 * t2 + ring)
+    tiles = STAGES * h1 * 4 * _row_chunks(h2, itemsize)  # words
+    return 4 * (3 * MAX_TAPS + maps + tiles + h1 * t2 + ring)
 
 
 def morph_items(ntaps, t1):
@@ -267,7 +284,7 @@ def morph_items(ntaps, t1):
     return math.ceil((t1 + k1 - 1) / MORPH_L) * (T2 + k2 - 1)
 
 
-def _morph_plan(shape, ntaps, mode, shift):
+def _morph_plan(shape, ntaps, mode, shift, itemsize):
     """The morphology modes' plan: a rows path for one plane with axis 0
     unfiltered, else the planes path, trying the register window first
     (for K0 in MORPH_WINDOWS, while the two-stage kernel's stage-1 runs
@@ -288,7 +305,7 @@ def _morph_plan(shape, ntaps, mode, shift):
             shape=shape, ntaps=ntaps, t1=rows, t2=ow, z=1,
             grid=(strips * math.ceil(n1 / rows), 1),
             smem_bytes=smem_bytes(ntaps, rows, ow, rmode), mode=rmode,
-            shift=shift,
+            shift=shift, itemsize=itemsize,
         )
     # the planes path shifts its tiles only where that adds no tile
     if math.ceil((n2 + shift) / T2) > math.ceil(n2 / T2):
@@ -300,7 +317,8 @@ def _morph_plan(shape, ntaps, mode, shift):
                     and morph_items(ntaps, t1) > MORPH_ITEMS * 256):
                 continue
             for stages in MORPH_STAGES:
-                nbytes = smem_bytes(ntaps, t1, T2, mode, stages, window)
+                nbytes = smem_bytes(ntaps, t1, T2, mode, stages, window,
+                                    itemsize)
                 if nbytes <= SMEM_LIMIT:
                     break
             else:
@@ -317,11 +335,12 @@ def _morph_plan(shape, ntaps, mode, shift):
                 shape=shape, ntaps=ntaps, t1=t1, t2=T2, z=z,
                 grid=(tiles, math.ceil(n0 / z)), smem_bytes=nbytes,
                 mode=mode, stages=stages, window=window, shift=shift,
+                itemsize=itemsize,
             )
     raise ValueError(f"no tile fits the taps {ntaps} ({mode})")
 
 
-def plan(shape, ntaps, mode="separable", shift=0):
+def plan(shape, ntaps, mode="separable", shift=0, itemsize=4):
     """Tiles, grid and shared-memory bytes for a (n0, n1, n2) volume with
     ``ntaps`` taps (or window samples) per axis (1 for an axis that is not
     filtered), for one of the kernel's modes (:func:`smem_bytes`).  A
@@ -330,12 +349,16 @@ def plan(shape, ntaps, mode="separable", shift=0):
     (a multiple of ROW_STEP) that give about one resident wave of blocks.
     ``"open_close"`` and ``"pair"`` plan the morphology kernels
     (:func:`_morph_plan`), whose tiles start ``shift`` columns left of
-    column 0 (where the plan's ``shift`` keeps it).  Raises ValueError
+    column 0 (where the plan's ``shift`` keeps it).  ``itemsize`` is the
+    element's bytes (4 for float32, 2 for float16 and bfloat16), which
+    sizes the planes paths' input tiles, as the TPU planner's
+    ``_choose_blocks(..., itemsize)`` sizes its slabs.  Raises ValueError
     when not even a one-row tile fits."""
     n0, n1, n2 = (int(s) for s in shape)
     ntaps = tuple(int(k) for k in ntaps)
+    itemsize = int(itemsize)
     if mode in ("open_close", "pair"):
-        return _morph_plan((n0, n1, n2), ntaps, mode, int(shift))
+        return _morph_plan((n0, n1, n2), ntaps, mode, int(shift), itemsize)
     if mode == "separable" and n0 == 1 and ntaps[0] == 1:
         strips = math.ceil(n2 / ROW_W)
         rows = ROW_STEP * max(1, min(math.ceil(n1 / ROW_STEP), math.ceil(
@@ -344,10 +367,11 @@ def plan(shape, ntaps, mode="separable", shift=0):
             shape=(n0, n1, n2), ntaps=ntaps, t1=rows, t2=ROW_W, z=1,
             grid=(strips * math.ceil(n1 / rows), 1),
             smem_bytes=smem_bytes(ntaps, rows, ROW_W, "rows"), mode="rows",
+            itemsize=itemsize,
         )
     t2 = T2
     t1 = 8 if n1 <= 8 else 16
-    while smem_bytes(ntaps, t1, t2, mode) > SMEM_LIMIT:
+    while smem_bytes(ntaps, t1, t2, mode, itemsize=itemsize) > SMEM_LIMIT:
         if t1 == 1:
             raise ValueError(f"no tile fits the taps {ntaps} ({mode})")
         t1 //= 2
@@ -357,33 +381,39 @@ def plan(shape, ntaps, mode="separable", shift=0):
     return Plan(
         shape=(n0, n1, n2), ntaps=ntaps, t1=t1, t2=t2, z=z,
         grid=(tiles, math.ceil(n0 / z)),
-        smem_bytes=smem_bytes(ntaps, t1, t2, mode),
+        smem_bytes=smem_bytes(ntaps, t1, t2, mode, itemsize=itemsize),
+        itemsize=itemsize,
     )
 
 
-def _fits(ntaps, mode):
+def _fits(ntaps, mode, itemsize=4):
     """Whether the planner fits a planes-path tile of morphology ``mode``
     for these windows (its last resort: a one-row tile, one plane in
     flight, rings in shared memory).  A 2-D array's rows path fits every
     window of at most 64 samples."""
-    return smem_bytes(ntaps, 1, T2, mode, stages=1) <= SMEM_LIMIT
+    return smem_bytes(ntaps, 1, T2, mode, stages=1,
+                      itemsize=itemsize) <= SMEM_LIMIT
 
 
 def _supports_morph(x, sizes, mode):
-    if not (isinstance(x, torch.Tensor) and x.dtype == torch.float32
+    # a half tensor only on the card: on the CPU its two calls are
+    # cupyimg_tpu's CPU path, rounding in the half type
+    if not (isinstance(x, torch.Tensor)
+            and (x.dtype == torch.float32 or x.is_cuda and x.dtype in HALF)
             and x.ndim in (2, 3) and len(sizes) == x.ndim):
         return False
     ntaps = [1 if sz is None else max(int(sz), 1) for sz in sizes]
     if max(ntaps) > MAX_TAPS:
         return False
     # a 2-D array runs as (1, n0, n1), on its rows path
-    return x.ndim == 2 or _fits(tuple(ntaps), mode)
+    return x.ndim == 2 or _fits(tuple(ntaps), mode, x.element_size())
 
 
 def supports_open_close(x, sizes):
     """Whether one two-stage pass computes an opening or closing of
     ``x`` over a box of ``sizes``: a 2-D or 3-D float32 tensor (a CUDA
-    one launches the kernel, a CPU one runs the plain version), at most
+    one launches the kernel, a CPU one runs the plain version) or a CUDA
+    float16 or bfloat16 one, at most
     64 samples per axis, and for a 3-D one a tile that the planner fits
     in 227 KB (every 2-D window fits its rows path).  Where this is
     False the caller takes two min/max passes."""
@@ -413,12 +443,13 @@ def _tap_kind(taps):
 
 
 def _check_input(x, *per_axis):
-    """Raise unless ``x`` is a contiguous 2-D or 3-D float32 CUDA tensor
-    with one entry per axis in each of ``per_axis``."""
-    if not x.is_cuda or x.dtype != torch.float32 or x.ndim not in (2, 3):
+    """Raise unless ``x`` is a contiguous 2-D or 3-D float32, float16 or
+    bfloat16 CUDA tensor with one entry per axis in each of
+    ``per_axis``."""
+    if not x.is_cuda or x.dtype not in _ENTRY or x.ndim not in (2, 3):
         raise ValueError(
-            "fused_separable kernel takes a 2-D or 3-D float32 CUDA tensor, "
-            f"got {x.ndim}-D {x.dtype} on {x.device}"
+            "fused_separable kernel takes a 2-D or 3-D float32, float16 or "
+            f"bfloat16 CUDA tensor, got {x.ndim}-D {x.dtype} on {x.device}"
         )
     if not x.is_contiguous():
         raise ValueError("fused_separable kernel takes a contiguous tensor")
@@ -427,13 +458,13 @@ def _check_input(x, *per_axis):
 
 
 @functools.lru_cache(maxsize=256)
-def _geometry(shape3, ntaps, mode, shift=0):
+def _geometry(shape3, ntaps, mode, shift=0, itemsize=4):
     """The kernel's dims and plan arguments (t1, z, grid, shared bytes,
     path: 1 for a rows path, a slot for the 16-byte flag, then the
     morphology planes path's stages and register window, t2 and the
-    morphology modes' shift), planned once per shape, taps, mode and
-    shift."""
-    p = plan(shape3, ntaps, mode, shift)
+    morphology modes' shift), planned once per shape, taps, mode, shift
+    and element size."""
+    p = plan(shape3, ntaps, mode, shift, itemsize)
     dims = np.asarray(shape3, np.int32)
     geom = np.asarray((p.t1, p.z, p.grid[0], p.grid[1], p.smem_bytes,
                        int(p.mode.endswith("rows")), 0, p.stages, p.window,
@@ -447,10 +478,11 @@ def _plan_args(x, shape3, ntaps, mode, shift=0):
     """``_geometry`` with its 16-byte flag set: whether rows may be read in
     16-byte chunks (an aligned array whose rows are a multiple of 16
     bytes)."""
+    size = x.element_size()
     dims, geom = _geometry(tuple(shape3), tuple(int(k) for k in ntaps), mode,
-                           shift)
+                           shift, size)
     geom = geom.copy()
-    geom[6] = int(x.data_ptr() % 16 == 0 and shape3[2] % 4 == 0)
+    geom[6] = int(x.data_ptr() % 16 == 0 and shape3[2] % (16 // size) == 0)
     return dims, geom
 
 
@@ -495,13 +527,13 @@ def _launch(x, weights, origins, modes, cval, op="corr"):
     if x.numel() == 0:
         return y
     dims, geom = _plan_args(x, shape3, info[:, 0], "separable")
-    lib = _library()
+    entry = getattr(_library(x.dtype), "fused_separable_" + _ENTRY[x.dtype])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.fused_separable_f32(
+        err = entry(
             x.data_ptr(), y.data_ptr(), dims.ctypes.data, taps.ctypes.data,
-            info.ctypes.data, float(cval), geom.ctypes.data, _OP_CODES[op],
-            stream,
+            info.ctypes.data, _kernel_cval(cval, x.dtype), geom.ctypes.data,
+            _OP_CODES[op], stream,
         )
     if err != 0:
         raise RuntimeError(f"fused_separable kernel launch failed: CUDA error {err}")
@@ -509,16 +541,19 @@ def _launch(x, weights, origins, modes, cval, op="corr"):
 
 
 @functools.cache
-def _library():
+def _library(dtype=torch.float32):
+    """The built part of ``csrc/fused_separable.cu`` for ``dtype``, with
+    its two C entries typed."""
     from cupyimg_tpu_torch.ops import _build
 
-    lib = _build.load("fused_separable")
-    fn = lib.fused_separable_f32
+    suffix = _ENTRY[dtype]
+    lib = _build.load("fused_separable", list(_ENTRY).index(dtype))
+    fn = getattr(lib, "fused_separable_" + suffix)
     fn.argtypes = [ctypes.c_void_p] * 5 + [
         ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p
     ]
     fn.restype = ctypes.c_int
-    fn = lib.fused_separable_morph_f32
+    fn = getattr(lib, "fused_separable_morph_" + suffix)
     fn.argtypes = [ctypes.c_void_p] * 4 + [
         ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p
     ]
@@ -526,12 +561,36 @@ def _library():
     return lib
 
 
+@functools.lru_cache(maxsize=64)
+def _kernel_cval(cval, dtype):
+    """``cval`` as the kernel takes it: the value the data's type holds
+    (a half type's cval rounded as the plain versions' extension rounds
+    it; ctypes rounds a float32's), passed as a float32."""
+    if dtype == torch.float32:
+        return float(cval)
+    return float(boundary.fill_value(cval, dtype))
+
+
+def _float32_work(x, cval):
+    """The plain versions' operands: a half tensor as float32 with its
+    ``cval`` rounded to the half type (the kernel reads the half type and
+    computes in float32); float32 as it is."""
+    if x.dtype in HALF:
+        return x.float(), boundary.fill_value(cval, x.dtype)
+    return x, cval
+
+
+def _to_input_type(y, x):
+    """A plain version's float32 result in ``x``'s type, rounded once."""
+    return y.to(x.dtype) if x.dtype in HALF else y
+
+
 def fused_separable_correlate(x, weights, origins, modes, cval=0.0):
     """Apply per-axis 1-D correlations in one fused pass.
 
     Parameters
     ----------
-    x : (S0, S1[, S2]) float32 tensor
+    x : (S0, S1[, S2]) float32, float16 or bfloat16 tensor
     weights : sequence of (sequence of float) or None, one per axis
         Filter taps (None = skip axis), at most 64 per axis.
     origins : sequence of int, per axis
@@ -555,11 +614,15 @@ fused_separable_correlate.launches = 0
 def fused_separable_correlate_ref(x, weights, origins, modes, cval=0.0):
     """Plain PyTorch version of the kernel: one combined per-axis
     extension by index gather, then per-axis shifted-slice accumulation
-    in the input's dtype (axis 2 first, as the kernel does)."""
+    with float32 taps in float32 (a half input widened, its cval rounded
+    to its type, the result rounded to it once), axis 2 first, as the
+    kernel does."""
     pads = [
         (0, 0) if w is None else _window(len(w), int(o))
         for w, o in zip(weights, origins)
     ]
+    x0 = x
+    x, cval = _float32_work(x, cval)
     y = boundary.pad(x, pads, list(modes), cval)
     for ax in reversed(range(x.ndim)):
         w = weights[ax]
@@ -571,7 +634,7 @@ def fused_separable_correlate_ref(x, weights, origins, modes, cval=0.0):
             term = float(wk) * y.narrow(ax, k, n)
             acc = term if acc is None else acc + term
         y = acc
-    return x.clone() if y is x else y
+    return _to_input_type(x.clone() if y is x else y, x0)
 
 
 def _minmax_windows(sizes):
@@ -586,7 +649,7 @@ def fused_separable_minmax(x, sizes, origins, modes, cval=0.0, is_min=True):
 
     Parameters
     ----------
-    x : (S0, S1[, S2]) float32 tensor
+    x : (S0, S1[, S2]) float32, float16 or bfloat16 tensor
     sizes : sequence of int, window size per axis (1 or None = skip), at
         most 64
     origins : sequence of int, per axis (window ``lo = size//2 + origin``)
@@ -642,10 +705,13 @@ def fused_separable_minmax_ref(x, sizes, origins, modes, cval=0.0,
                                is_min=True):
     """Plain PyTorch version of the min/max kernel: one combined per-axis
     extension by index gather, then a running ``torch.minimum`` or
-    ``torch.maximum`` over ``narrow`` slices of each axis."""
+    ``torch.maximum`` over ``narrow`` slices of each axis (a half input
+    in float32, as the kernel folds it: exact either way)."""
+    x0 = x
+    x, cval = _float32_work(x, cval)
     y = boundary.pad(x, _box_pads(sizes, origins), list(modes), cval)
     y = _box_fold(y, sizes, is_min)
-    return x.clone() if y is x else y
+    return _to_input_type(x.clone() if y is x else y, x0)
 
 
 def _morph_info(x, sizes, origins1, origins2, modes):
@@ -690,12 +756,14 @@ def _launch_morph(x, sizes, origins1, origins2, modes, cval, kind):
         _morph_info(x, sizes, origins1, origins2, modes)
         return y
     dims, info, geom = _morph_args(x, sizes, origins1, origins2, modes, kind)
-    lib = _library()
+    entry = getattr(_library(x.dtype),
+                    "fused_separable_morph_" + _ENTRY[x.dtype])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.fused_separable_morph_f32(
+        err = entry(
             x.data_ptr(), y.data_ptr(), dims.ctypes.data, info.ctypes.data,
-            float(cval), geom.ctypes.data, _MORPH_KINDS[kind], stream,
+            _kernel_cval(cval, x.dtype), geom.ctypes.data, _MORPH_KINDS[kind],
+            stream,
         )
     if err != 0:
         raise RuntimeError(
@@ -711,7 +779,7 @@ def fused_separable_open_close(x, sizes, origins1, origins2, modes,
 
     Parameters
     ----------
-    x : (S0, S1[, S2]) float32 tensor
+    x : (S0, S1[, S2]) float32 tensor, or a CUDA float16 or bfloat16 one
     sizes : sequence of int, the box per axis (1 or None = skip), at most
         64, the same in both stages
     origins1, origins2 : sequence of int, per axis, the windows' origins
@@ -749,9 +817,11 @@ def fused_separable_open_close_ref(x, sizes, origins1, origins2, modes,
     window), then fold stage 2 back to ``x.shape``."""
     pads = [(a + c, b + d) for (a, b), (c, d) in
             zip(_box_pads(sizes, origins1), _box_pads(sizes, origins2))]
+    x0 = x
+    x, cval = _float32_work(x, cval)
     y = boundary.pad(x, pads, list(modes), cval)
     y = _box_fold(_box_fold(y, sizes, opening), sizes, not opening)
-    return x.clone() if y is x else y
+    return _to_input_type(x.clone() if y is x else y, x0)
 
 
 def fused_separable_morph_pair(x, sizes, origins, modes, cval=0.0,
@@ -785,12 +855,15 @@ def fused_separable_morph_pair_ref(x, sizes, origins, modes, cval=0.0,
                                    combine="grad"):
     """Plain PyTorch version of the pair kernel: extend once, take the
     min and max folds of that one extension, then ``mx - mn`` or
-    ``(mx + mn) - 2.0 * x``, each operation rounded on its own."""
+    ``(mx + mn) - 2.0 * x``, each operation rounded on its own in float32
+    (a half input widened, the result rounded to it once)."""
     if combine not in ("grad", "laplace"):
         raise ValueError(f"unknown pair combine {combine!r}")
+    x0 = x
+    x, cval = _float32_work(x, cval)
     y = boundary.pad(x, _box_pads(sizes, origins), list(modes), cval)
     mn = _box_fold(y, sizes, True)
     mx = _box_fold(y, sizes, False)
     if combine == "grad":
-        return mx - mn
-    return mx + mn - 2.0 * x
+        return _to_input_type(mx - mn, x0)
+    return _to_input_type(mx + mn - 2.0 * x, x0)

@@ -81,7 +81,7 @@ def correlate1d_axis(x, weights1d, axis: int, mode, cval, origin, acc_dtype):
         origin == 0
         and size > 1
         and size % 2 == 1
-        and np.dtype(acc_dtype).kind in "fc"
+        and dtypes.kind(acc_dtype) in "fc"
     ):
         mid = size // 2
         w = weights1d
@@ -130,7 +130,7 @@ def correlate_nd(x, weights, mode, cval, origins, acc_dtype):
     from cupyimg_tpu_torch.ops import fused_dense
 
     weights = np.asarray(weights)
-    if np.dtype(acc_dtype) == np.float32:
+    if dtypes.policy_dtype(acc_dtype) == np.float32:
         xw = x.to(torch.float32)
         if fused_dense.supports_dense(xw, weights):
             return fused_dense.fused_dense_correlate(

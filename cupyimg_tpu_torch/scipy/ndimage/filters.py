@@ -85,10 +85,19 @@ def _default_dtype_mode(dtype_mode):
 
 def _as_weights(weights):
     """Filter taps as a host numpy array (zero taps are skipped and
-    symmetric taps folded when the accumulation is built)."""
+    symmetric taps folded when the accumulation is built); bfloat16 taps,
+    which numpy lacks, as float32, which holds their values."""
     if isinstance(weights, torch.Tensor):
-        weights = weights.detach().cpu().numpy()
+        weights = dtypes.host_numpy(weights)
     return np.asarray(weights)
+
+
+def _taps_dtype(weights):
+    """The dtype the policy reckons ``weights`` in, before
+    :func:`_as_weights`: torch.bfloat16 for bfloat16 taps, else numpy's."""
+    if isinstance(weights, torch.Tensor):
+        return dtypes.policy_dtype(weights.dtype)
+    return np.asarray(weights).dtype
 
 
 def _cast_output(acc, out_dtype):
@@ -100,10 +109,10 @@ def _cast_output(acc, out_dtype):
     the int64 range are first reduced mod 2^64 into the int64 window.
     Complex -> real drops the imaginary part.
     """
-    out_dtype = np.dtype(out_dtype)
-    if acc.is_complex() and out_dtype.kind != "c":
+    kind = dtypes.kind(out_dtype)
+    if acc.is_complex() and kind != "c":
         acc = acc.real
-    if out_dtype.kind in "iu" and acc.is_floating_point():
+    if kind in "iu" and acc.is_floating_point():
         acc = torch.trunc(acc)
         two63, two64 = 2.0 ** 63, 2.0 ** 64
         big = (acc >= two63) | (acc < -two63)
@@ -113,22 +122,22 @@ def _cast_output(acc, out_dtype):
     return acc.to(dtypes.to_torch(out_dtype))
 
 
-def _acc_and_out_dtypes(input, weights, output, dtype_mode):
-    """(accumulation, output) numpy dtypes of a correlation.
-    ``dtype_mode="numpy"`` gives numpy's: the promoted type of input and
-    weights for both (integers wrap), float16 accumulating in float32, and
-    no ``output``."""
+def _acc_and_out_dtypes(input, weights_dtype, output, dtype_mode):
+    """(accumulation, output) numpy dtypes of a correlation (bfloat16 as
+    ``torch.bfloat16``).  ``dtype_mode="numpy"`` gives numpy's: the
+    promoted type of input and weights for both (integers wrap), float16
+    accumulating in float32 (bfloat16 in itself, as cupyimg_tpu), and no
+    ``output``."""
     if dtype_mode == "numpy":
         if output is not None:
             raise ValueError(
                 "dtype_mode == 'numpy' does not support the output argument"
             )
-        out_dtype = np.promote_types(dtypes.to_numpy(input.dtype),
-                                     weights.dtype)
+        out_dtype = dtypes.promote_types(input.dtype, weights_dtype)
         acc_dtype = (np.dtype(np.float32) if out_dtype == np.float16
                      else out_dtype)
         return acc_dtype, out_dtype
-    acc_dtype = dtypes.promote_weights_dtype(input.dtype, weights.dtype,
+    acc_dtype = dtypes.promote_weights_dtype(input.dtype, weights_dtype,
                                              dtype_mode)
     return acc_dtype, dtypes.resolve_output_dtype(output, input.dtype,
                                                   acc_dtype)
@@ -150,6 +159,7 @@ def _correlate_or_convolve(
     """Shared body of :func:`correlate` and :func:`convolve`."""
     dtype_mode = _default_dtype_mode(dtype_mode)
     input = util.as_tensor(input)
+    taps_dtype = _taps_dtype(weights)
     weights = _as_weights(weights)
     boundary.check_mode(mode)
     origins = _check_nd_weights(input, weights, origin)
@@ -168,7 +178,7 @@ def _correlate_or_convolve(
         ]
     elif weights.dtype.kind == "c":
         weights = weights.conj()  # numpy.correlate conjugates the weights
-    acc_dtype, out_dtype = _acc_and_out_dtypes(input, weights, output,
+    acc_dtype, out_dtype = _acc_and_out_dtypes(input, taps_dtype, output,
                                                dtype_mode)
     if input.numel() == 0:  # scipy shape-preserves empty inputs
         return input.new_zeros(input.shape, dtype=dtypes.to_torch(out_dtype))
@@ -245,6 +255,7 @@ def _correlate1d(
     most 64 real taps)."""
     dtype_mode = _default_dtype_mode(dtype_mode)
     input = util.as_tensor(input)
+    taps_dtype = _taps_dtype(weights)
     weights = _as_weights(weights)
     if weights.ndim != 1:
         raise RuntimeError("weights must be 1-d")
@@ -261,13 +272,13 @@ def _correlate1d(
     elif weights.dtype.kind == "c":
         weights = weights.conj()
 
-    acc_dtype, out_dtype = _acc_and_out_dtypes(input, weights, output,
+    acc_dtype, out_dtype = _acc_and_out_dtypes(input, taps_dtype, output,
                                                dtype_mode)
     if not crop:
         acc = _full_correlate1d(input, weights, axis, mode, cval, acc_dtype)
         return _cast_output(acc, out_dtype)
     if weights.dtype.kind != "c" and (
-            acc_dtype == out_dtype == dtypes.to_numpy(input.dtype)):
+            acc_dtype == out_dtype == dtypes.policy_dtype(input.dtype)):
         fused = _try_fused_separable(
             input, [(axis, weights, mode, cval, origin)], out_dtype)
         if fused is not None:
@@ -347,8 +358,9 @@ def convolve1d(
         # the full convolution: flipped weights, no origin; the
         # correlation conjugates complex weights, which a convolution must
         # not, so they are conjugated here first to cancel it
-        w = _as_weights(weights)[::-1]
-        if w.dtype.kind == "c":
+        w = (weights.flip(0) if isinstance(weights, torch.Tensor)
+             else _as_weights(weights)[::-1])  # a tensor keeps bfloat16
+        if dtypes.is_complex_dtype(_taps_dtype(w)):
             w = w.conj()
         return _correlate1d(input, w, axis, output, mode, cval, 0, False,
                             dtype_mode, crop=False)
@@ -367,7 +379,7 @@ def _try_fused_separable(x, axes_params, out_dtype):
     (ops/fused_separable) when it applies: CUDA float32 data, 2-/3-d,
     at most 64 taps per axis.  Returns None when the per-axis path
     should run instead."""
-    if np.dtype(out_dtype).kind != "f" or not x.is_floating_point():
+    if dtypes.kind(out_dtype) != "f" or not x.is_floating_point():
         return None
     weights = [None] * x.ndim
     origins = [0] * x.ndim
@@ -741,7 +753,7 @@ def generic_gradient_magnitude(
             input, ax, out_dtype, modes[i], cval,
             *extra_arguments, **extra_keywords
         ))
-    root_dtype = np.promote_types(dtypes.to_numpy(acc.dtype), np.float32)
+    root_dtype = dtypes.promote_types(acc.dtype, np.float32)
     return _cast_output(
         torch.sqrt(acc.to(dtypes.to_torch(root_dtype))), out_dtype
     )

@@ -87,18 +87,18 @@ def _resolve_out_dtype(output, input):
             "cupyimg_tpu_torch is functional: preallocated `output` arrays "
             "are not supported; pass a dtype instead"
         )
-    return dtypes.to_numpy(input.dtype if output is None else output)
+    return dtypes.policy_dtype(input.dtype if output is None else output)
 
 
 def _float_work_dtype(dtype, allow_float32):
-    dtype = dtypes.to_numpy(dtype)
-    if dtype.kind == "c":
+    kind = dtypes.kind(dtype)
+    if kind == "c":
         minf = np.complex64 if allow_float32 else np.complex128
     else:
         minf = np.float32 if allow_float32 else np.float64
-    if dtype.kind in "iub":
+    if kind in "iub":
         return np.dtype(minf)
-    return np.promote_types(dtype, minf)
+    return dtypes.promote_types(dtype, minf)
 
 
 def _coord_dtype(allow_float32):
@@ -121,10 +121,10 @@ def _finalize(out, out_dtype):
     zero and SATURATE at the dtype's bounds (spline overshoot on a uint8
     image clamps to 0/255, it does not wrap); a complex result going to a
     real output keeps the real part."""
-    out_dtype = np.dtype(out_dtype)
-    if out.is_complex() and out_dtype.kind != "c":
+    kind = dtypes.kind(out_dtype)
+    if out.is_complex() and kind != "c":
         out = out.real
-    if out_dtype.kind in "iu":
+    if kind in "iu":
         out = torch.where(out >= 0, torch.floor(out + 0.5),
                           torch.ceil(out - 0.5))
         info = np.iinfo(out_dtype)
@@ -175,8 +175,8 @@ def spline_filter1d(
     if order < 2 or x.ndim == 0 or (
             x.shape[util.check_axis(axis, x.ndim)] == 1):
         return x.to(dtypes.to_torch(out_dtype))
-    work = np.promote_types(out_dtype,
-                            _float_work_dtype(x.dtype, allow_float32))
+    work = dtypes.promote_types(out_dtype,
+                                _float_work_dtype(x.dtype, allow_float32))
     y = _spline_axes(x.to(dtypes.to_torch(work)).contiguous(), order, mode,
                      (util.check_axis(axis, x.ndim),))
     return y.to(dtypes.to_torch(out_dtype))
@@ -190,8 +190,8 @@ def spline_filter(
         raise RuntimeError("spline order not supported")
     x = util.as_tensor(input)
     out_dtype = _resolve_out_dtype(output, x)
-    work = np.promote_types(out_dtype,
-                            _float_work_dtype(x.dtype, allow_float32))
+    work = dtypes.promote_types(out_dtype,
+                                _float_work_dtype(x.dtype, allow_float32))
     y = x.to(dtypes.to_torch(work)).contiguous()
     if x.numel() > 0:
         y = _spline_axes(y, order, mode, tuple(range(x.ndim)))
@@ -253,11 +253,10 @@ def map_coordinates(
         mode = "constant"
 
     out_dtype = _resolve_out_dtype(output, x)
-    ckind = dtypes.to_numpy(coordinates.dtype).kind
-    if ckind not in "iuf":
+    if dtypes.kind(coordinates.dtype) not in "iuf":
         raise ValueError("coordinates should have floating point dtype")
     coord_work = np.float32 if allow_float32 else np.float64
-    cdt = np.promote_types(dtypes.to_numpy(coordinates.dtype), coord_work)
+    cdt = dtypes.promote_types(coordinates.dtype, coord_work)
     coordinates = coordinates.to(dtypes.to_torch(cdt))
     if x.numel() == 0:
         return _empty_input(x, coordinates.shape[1:], out_dtype, mode, cval)

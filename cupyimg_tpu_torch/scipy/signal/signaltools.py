@@ -102,7 +102,7 @@ def _np_dtype(t):
 
 def _promote(a, b):
     """numpy's promotion of two tensors' dtypes, as a torch dtype."""
-    return dtypes.to_torch(np.promote_types(_np_dtype(a), _np_dtype(b)))
+    return dtypes.to_torch(dtypes.promote_types(a.dtype, b.dtype))
 
 
 def _operands(in1, in2):
@@ -501,9 +501,10 @@ def _direct_corr_real(xp, w, out_shape):
 def _accumulator(dtype):
     """The dtype a direct correlation of result ``dtype`` sums in:
     float64 for integers and bool, at least float32 otherwise."""
-    if dtype.kind in "iub":
+    kind = dtypes.kind(dtype)
+    if kind in "iub":
         return np.dtype(np.float64)
-    return np.promote_types(dtype, np.float32) if dtype.kind == "f" else dtype
+    return dtypes.promote_types(dtype, np.float32) if kind == "f" else dtype
 
 
 def _direct_corr(xp, w, out_shape):
@@ -523,12 +524,13 @@ def _direct_corr(xp, w, out_shape):
     return torch.complex(rr - ii, ir + ri)
 
 
-def _direct_correlate_nd(in1, w, mode):
+def _direct_correlate_nd(in1, w, mode, w_dtype=None):
     """Direct nd correlation ``out[i] = sum_k w[k] in1[i+k]`` with zero
     extension, modes full/same/valid; ``w`` (numpy) is used as given
-    (callers conjugate or flip)."""
+    (callers conjugate or flip), its dtype ``w_dtype`` where given."""
     s1, s2 = in1.shape, w.shape
-    dtype = np.promote_types(_np_dtype(in1), w.dtype)
+    dtype = dtypes.promote_types(in1.dtype,
+                                 w.dtype if w_dtype is None else w_dtype)
     acc = _accumulator(dtype)
     if mode in ("full", "same"):
         pads = [(k - 1, k - 1) for k in s2]
@@ -542,7 +544,7 @@ def _direct_correlate_nd(in1, w, mode):
     out = _direct_corr(xp, w, out_shape)
     if mode == "same":
         out = _centered(out, s1)
-    if dtype.kind in "iub":
+    if dtypes.kind(dtype) in "iub":
         out = torch.round(out)
     return out.to(dtypes.to_torch(dtype))
 
@@ -566,7 +568,7 @@ def choose_conv_method(in1, in2, mode="full", measure=False):
             times[method] = timeit.timeit(run, number=3)
         chosen = "fft" if times["fft"] < times["direct"] else "direct"
         return chosen, times
-    kinds = _np_dtype(volume).kind + _np_dtype(kernel).kind
+    kinds = dtypes.kind(volume.dtype) + dtypes.kind(kernel.dtype)
     if all(k in "iu" for k in kinds):
         # the fft result must round-trip exactly through float64
         max_value = float(volume.abs().max()) * float(kernel.abs().max()) * (
@@ -612,8 +614,8 @@ def convolve(in1, in2, mode="full", method="auto"):
         return out.to(result)
     if method == "direct":
         # convolution is correlation with the flipped kernel (no conj)
-        w = np.flip(kernel.cpu().numpy())
-        return _direct_correlate_nd(volume, w, mode)
+        w = np.flip(dtypes.host_numpy(kernel))
+        return _direct_correlate_nd(volume, w, mode, kernel.dtype)
     raise ValueError("Acceptable method flags are 'auto', 'direct', or "
                      "'fft'.")
 
@@ -636,9 +638,9 @@ def correlate(in1, in2, mode="full", method="auto"):
     swapped = _inputs_swap_needed(mode, in1.shape, in2.shape)
     if swapped:
         in1, in2 = in2, in1
-    w = in2.cpu().numpy()
+    w = dtypes.host_numpy(in2)
     out = _direct_correlate_nd(in1, np.conj(w) if w.dtype.kind == "c" else w,
-                               mode)
+                               mode, in2.dtype)
     if swapped:
         out = _reverse_and_conj(out)
     return out
@@ -672,7 +674,7 @@ def _conv2d_common(in1, in2, mode, boundary, fillvalue, convolution):
         raise ValueError("convolve2d inputs must both be 2-D arrays")
     boundary = {"circular": "wrap", "symmetric": "symm"}.get(boundary,
                                                              boundary)
-    dtype = np.promote_types(_np_dtype(in1), _np_dtype(in2))
+    dtype = dtypes.promote_types(in1.dtype, in2.dtype)
     fv = np.asarray(fillvalue)
     if boundary == "fill":
         # fillvalue must be a scalar castable to the output dtype without
@@ -681,7 +683,7 @@ def _conv2d_common(in1, in2, mode, boundary, fillvalue, convolution):
             raise ValueError(
                 "`fillvalue` must be scalar or an array with one element"
             )
-        if fv.dtype.kind == "c" and dtype.kind != "c" and np.any(
+        if fv.dtype.kind == "c" and dtypes.kind(dtype) != "c" and np.any(
                 fv.imag != 0):
             raise ValueError(
                 "could not cast `fillvalue` directly to the output dtype"
@@ -689,7 +691,7 @@ def _conv2d_common(in1, in2, mode, boundary, fillvalue, convolution):
     swapped = _inputs_swap_needed(mode, in1.shape, in2.shape)
     if swapped:
         in1, in2 = in2, in1
-    w = in2.cpu().numpy()  # the dense kernel's weights live on the host
+    w = dtypes.host_numpy(in2)  # the dense kernel's weights live on the host
     w = np.flip(w) if convolution else np.conj(w)
     s1, s2 = in1.shape, w.shape
     acc = _accumulator(dtype)
@@ -718,7 +720,7 @@ def _conv2d_common(in1, in2, mode, boundary, fillvalue, convolution):
         # correlation is not symmetric in its operands: scipy computes
         # with them swapped and reverses the result on both axes
         out = torch.flip(out, (0, 1))
-    if dtype.kind in "iub":
+    if dtypes.kind(dtype) in "iub":
         out = torch.round(out)
     return out.to(dtypes.to_torch(dtype))
 

@@ -27,9 +27,8 @@ def _pair(image0, image1):
 
 
 def _as_floats(image0, image1):
-    float_type = dtypes.to_torch(np.promote_types(np.promote_types(
-        dtypes.to_numpy(image0.dtype), dtypes.to_numpy(image1.dtype)),
-        np.float32))
+    float_type = dtypes.to_torch(dtypes.promote_types(dtypes.promote_types(
+        image0.dtype, image1.dtype), np.float32))
     return image0.to(float_type), image1.to(float_type)
 
 

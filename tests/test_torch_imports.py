@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``cupyimg_tpu_torch``, and not
 ``chip_smoke.py``, imports JAX or anything of ``cupyimg_tpu`` (a spawned
 rank of ``parallel.run_world`` neither: ``test_torch_parallel.py``
-asserts it on its world)."""
+asserts it on its world), nor ``ml_dtypes``, which the card's machine
+lacks (the port's bfloat16 is torch's own)."""
 
 import ast
 import json
@@ -19,7 +20,8 @@ names = [m.name for m in pkgutil.walk_packages(cupyimg_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 bad = sorted(k for k in sys.modules
-             if k.split(".")[0] in ("jax", "jaxlib", "cupyimg_tpu"))
+             if k.split(".")[0] in ("jax", "jaxlib", "cupyimg_tpu",
+                                    "ml_dtypes"))
 print(json.dumps({"names": names, "bad": bad}))
 """
 
@@ -161,7 +163,7 @@ SLICE_12 = [
 
 
 def _forbidden(name):
-    return name.split(".")[0] in ("jax", "jaxlib", "cupyimg_tpu")
+    return name.split(".")[0] in ("jax", "jaxlib", "cupyimg_tpu", "ml_dtypes")
 
 
 def test_every_port_module_imports_without_jax():
