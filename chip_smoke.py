@@ -171,7 +171,10 @@ Phases, each fatal on failure (a traceback and a non-zero exit):
    probe that crashes its world is reported so); then the half path
    (``half_path``): B1's kernels in float16 and bfloat16 against their
    plain versions (every kind, both paths, four modes, two row
-   alignments: exact but corr and laplace, within 1 ulp of the type),
+   alignments, and the branches of the redesigned half kernels: rows of
+   n2 % 8 of 0 and 3, shifted tiles, 1 to 64 taps along the contiguous
+   axis, axis-0 register windows of 1, 3 and 5 and a ring of 7; exact
+   but corr and laplace, within 1 ulp of the type),
    then, its counts set to 0, eight calls in each type (uniform,
    gaussian, minimum, grey_opening and morphological_gradient of 256^3;
    uniform, sobel and grey_closing of 4096^2), each one B1 launch and
@@ -201,6 +204,12 @@ Phases, each fatal on failure (a traceback and a non-zero exit):
 
 The last line is ``{"ok": true, "device": {...}}``.  Exits non-zero,
 printing no result, when CUDA is not available.
+
+``python3 chip_smoke.py --half`` runs the half path alone: it builds the
+separable source only, prints its ptxas lines and runs ``half_path`` as
+above, then prints its kernels line and the same last line; it fails, as
+the whole run does, where a half instance spills more than its float32
+twin.
 """
 
 import json
@@ -479,6 +488,53 @@ def ptxas_entries(text):
     return out
 
 
+def ptxas_b1_lines(_build):
+    """The register and spill lines of every instance of the separable
+    source, B1 and B1-morph in each element type.  Returns the float16
+    and bfloat16 instances that spill more than their float32 twins (the
+    half types' kernels should keep float32's registers: their tiles are
+    widened or their samples converted in pairs), for the caller to
+    check."""
+    kinds = ("opening", "closing", "gradient", "laplace")
+    spills = {}
+    # one part per element type, its kernels' last template argument
+    for part in _build.parts("fused_separable"):
+        log = _build.library_path("fused_separable", part).with_suffix(".log")
+        for name, regs, st, ld, stack in ptxas_entries(log.read_text()):
+            spill = (f"{regs} registers, {st} bytes spill stores, {ld} "
+                     f"bytes spill loads, {stack} bytes stack")
+            etype = ("bfloat16" if "__nv_bfloat16" in name else
+                     "float16" if "__half" in name else "float32")
+            m = re.search(r"morph_planes_f32_kernelILi(\d)ELi(\d)E", name)
+            if m:
+                window = ("ring" if m.group(2) == "0" else
+                          f"axis-0 window {m.group(2)} in registers")
+                label = (f"B1-morph planes path {kinds[int(m.group(1))]}, "
+                         f"{window}")
+            elif re.search(r"morph_rows_f32_kernelILi(\d)E", name):
+                m = re.search(r"morph_rows_f32_kernelILi(\d)E", name)
+                label = f"B1-morph rows path {kinds[int(m.group(1))]}"
+            else:
+                for kernel, path in (("fused_separable_f32_kernel", "planes"),
+                                     ("rows_f32_kernel", "rows")):
+                    m = re.search(kernel + r"ILi(\d)E(?:Li(\d)E)?", name)
+                    if m:
+                        break
+                else:
+                    continue
+                op = ("corr", "min", "max")[int(m.group(1))]
+                window = ("" if m.group(2) is None else
+                          ", ring" if m.group(2) == "0" else
+                          f", axis-0 window {m.group(2)} in registers")
+                label = f"B1 {path} path {op}{window}"
+            print(f"ptxas {label}, {etype}: {spill}")
+            spills[label, etype] = st + ld + stack
+    return [f"{label}, {etype}: {n} bytes of local memory, float32 "
+            f"{spills[label, 'float32']}"
+            for (label, etype), n in sorted(spills.items())
+            if n > spills[label, "float32"]]
+
+
 def ptxas_lines(_build, fr):
     """The register and spill lines of the rank kernel's main-path
     instances (each must show no spill and no stack) and of the separable
@@ -506,37 +562,8 @@ def ptxas_lines(_build, fr):
     print(f"ptxas B3 instances: {len(inst)} kernels, at most "
           f"{max(e[1] for e in inst)} registers, "
           f"{sum(1 for e in inst if e[2] or e[4])} with spills or stack")
-    kinds = ("opening", "closing", "gradient", "laplace")
-    # one part per element type, its kernels' last template argument
-    for part in _build.parts("fused_separable"):
-        log = _build.library_path("fused_separable", part).with_suffix(".log")
-        for name, regs, st, ld, stack in ptxas_entries(log.read_text()):
-            spill = (f"{regs} registers, {st} bytes spill stores, {ld} "
-                     f"bytes spill loads, {stack} bytes stack")
-            etype = ("bfloat16" if "__nv_bfloat16" in name else
-                     "float16" if "__half" in name else "float32")
-            m = re.search(r"morph_planes_f32_kernelILi(\d)ELi(\d)E", name)
-            if m:
-                window = ("ring" if m.group(2) == "0" else
-                          f"axis-0 window {m.group(2)} in registers")
-                print(f"ptxas B1-morph planes path {kinds[int(m.group(1))]}"
-                      f", {window}, {etype}: {spill}")
-                continue
-            m = re.search(r"morph_rows_f32_kernelILi(\d)E", name)
-            if m:
-                print(f"ptxas B1-morph rows path {kinds[int(m.group(1))]}, "
-                      f"{etype}: {spill}")
-                continue
-            for kernel, path in (("fused_separable_f32_kernel", "planes"),
-                                 ("rows_f32_kernel", "rows")):
-                if kernel in name:
-                    m = re.search(kernel + r"ILi(\d)E(?:Li(\d)E)?", name)
-                    op = ("corr", "min", "max")[int(m.group(1))]
-                    window = ("" if m.group(2) is None else
-                              ", ring" if m.group(2) == "0" else
-                              f", axis-0 window {m.group(2)} in registers")
-                    print(f"ptxas B1 {path} path {op}{window}, {etype}: "
-                          f"{spill}")
+    worse = ptxas_b1_lines(_build)
+    check(not worse, f"ptxas: half instances spill: {worse}")
     log = _build.library_path("fused_dense").with_suffix(".log")
     for name, regs, st, ld, stack in ptxas_entries(log.read_text()):
         m = re.search(r"dense_blocked_f32_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
@@ -4822,6 +4849,98 @@ def half_vs_plain(fs, torch):
               f"(2 paths x 2 row alignments x 4 modes): "
               + ("exact" if kind not in ("corr", "laplace") else
                  f"at most {w:.2f} ulp of max|plain|"))
+    half_branches_vs_plain(fs, torch)
+
+
+# The branches of the half types' redesigned kernels: (shape, per-axis
+# taps or windows, mode, cval).  Rows of n2 % 8 == 0 (16-byte units) and
+# 3 (every sample through the index map), tiles shifted off a 16-byte
+# boundary, K2 of 1, 5, 17 and 64, axis-0 windows of 1, 3 and 5
+# (registers) and 7 (a ring), partial edge tiles; 3-D on the planes
+# paths, 2-D on the rows paths (tests/test_torch_half_precision_cuda.py:
+# BRANCHES, the same cases at the same sizes).
+HALF_BRANCHES = {
+    "ring 7, sh 6, n2 % 8 = 0": ((7, 18, 72), (7, 3, 5), "reflect", 0.0),
+    "window 3, K2 17, n2 % 8 = 3": ((6, 18, 67), (3, 5, 17), "constant",
+                                     0.3),
+    "window 5, K2 64, n2 % 8 = 3": ((8, 21, 131), (5, 2, 64), "nearest",
+                                     0.0),
+    "window 1, K2 1": ((5, 19, 64), (1, 5, 1), "wrap", 0.0),
+    "rows K2 5, sh 6": ((40, 264), (17, 5), "mirror", 0.0),
+    "rows K2 64, n2 % 8 = 3": ((37, 291), (3, 64), "reflect", 0.0),
+    "rows K2 1": ((33, 200), (9, 1), "constant", 0.3),
+}
+
+
+def _branch_taps(n, rng):
+    """Taps of each of the kernel's kinds by length: equal (5), symmetric
+    (3, 17), general (1, 2, 7, 64)."""
+    if n == 5:
+        return (0.2,) * 5
+    if n == 3:
+        return (0.25, 0.5, 0.25)
+    if n == 17:
+        g = np.exp(-0.5 * (np.arange(-8, 9) / 3.0) ** 2)
+        return tuple(g / g.sum())
+    return tuple(rng.uniform(-1, 1, n) / n)
+
+
+def half_branches_vs_plain(fs, torch):
+    """Every kind x both half types x HALF_BRANCHES against the plain
+    versions: exact with NaN, corr and laplace within 1 ulp of the type
+    at max|plain|."""
+    worst = {}
+    for dname, eps in HALF_TYPES:
+        dtype = getattr(torch, dname)
+        for case, (shape, sizes, mode, cval) in HALF_BRANCHES.items():
+            nd = len(shape)
+            base = np.random.RandomState(5).standard_normal(shape).astype(
+                np.float32)
+            nan = base.copy()
+            nan.flat[::max(1, nan.size // 7)] = np.nan
+            modes, zeros = (mode,) * nd, (0,) * nd
+            for kind in HALF_KINDS:
+                exact = kind not in ("corr", "laplace")
+                x = dev(nan if exact else base).to(dtype)
+                if kind == "corr":
+                    rng = np.random.RandomState(sum(sizes))
+                    args = ([_branch_taps(n, rng) for n in sizes], zeros,
+                            modes, cval)
+                    got = fs.fused_separable_correlate(x, *args)
+                    ref = fs.fused_separable_correlate_ref(x, *args)
+                elif kind in ("min", "max"):
+                    args = (sizes, zeros, modes, cval, kind == "min")
+                    got = fs.fused_separable_minmax(x, *args)
+                    ref = fs.fused_separable_minmax_ref(x, *args)
+                elif kind in ("opening", "closing"):
+                    args = (sizes, zeros, zeros, modes, cval,
+                            kind == "opening")
+                    got = fs.fused_separable_open_close(x, *args)
+                    ref = fs.fused_separable_open_close_ref(x, *args)
+                else:
+                    args = (sizes, zeros, modes, cval, kind)
+                    got = fs.fused_separable_morph_pair(x, *args)
+                    ref = fs.fused_separable_morph_pair_ref(x, *args)
+                torch.cuda.synchronize()
+                check(got.dtype == dtype == ref.dtype
+                      and got.shape == ref.shape,
+                      f"half branch {case} {kind}: {got.dtype} {got.shape}")
+                if exact:
+                    check(same(got, ref), f"half branch {case} {kind} "
+                          f"{dname}: kernel differs from its plain version")
+                    worst[dname, kind] = 0.0
+                    continue
+                tol = half_ulp(eps, ref.abs().max())
+                err = float((got.float() - ref.float()).abs().max())
+                check(err <= tol, f"half branch {case} {kind} {dname}: "
+                      f"{err:.3e} > 1 ulp {tol:.1e}")
+                worst[dname, kind] = max(worst.get((dname, kind), 0.0),
+                                         err / tol)
+    for (dname, kind), w in sorted(worst.items()):
+        print(f"kernel-vs-plain half {dname:8s} {kind:8s} "
+              f"{len(HALF_BRANCHES)} branch cases: "
+              + ("exact" if kind not in ("corr", "laplace") else
+                 f"at most {w:.2f} ulp of max|plain|"))
 
 
 def half_path(fs, ndi, sndi, torch, boundary):
@@ -5125,6 +5244,23 @@ def half_path(fs, ndi, sndi, torch, boundary):
     return list(rows.values()), launches, entries
 
 
+def half_only(fs, ndi, sndi, torch, boundary, _build, name):
+    """``--half``: the separable source's build and ptxas lines, then the
+    half path alone; its kernels line, then the last line."""
+    t0 = time.perf_counter()
+    _build.build(("fused_separable",))
+    print(f"build: {time.perf_counter() - t0:.1f} s")
+    worse = ptxas_b1_lines(_build)
+    _, _, entries = half_path(fs, ndi, sndi, torch, boundary)
+    print(f"wall: {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"kernels": entries}))
+    check(not worse, f"ptxas: half instances spill: {worse}")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main():
     import torch
 
@@ -5153,6 +5289,10 @@ def main():
     name = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
+
+    if sys.argv[1:] == ["--half"]:
+        return half_only(fs, ndi, sndi, torch, boundary, _build, name)
+    check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]}")
 
     # -- phase 2: build ---------------------------------------------------
     t0 = time.perf_counter()

@@ -71,17 +71,30 @@
 //
 // Element types: every kernel is templated on the type E it reads and
 // writes (the _f32 in the names is the type it computes in).  float16 and
-// bfloat16 arrays (the TPU kernel's shift plans keep their slab in the
-// input type and compute in it) are read as E, converted to float once on
-// read, folded in float32 with float32 taps and rounded to E once, at the
-// store.  The planes paths keep their input tiles in E in shared memory,
-// 16-byte cp.async chunks of 8 samples (ops/fused_separable.py:smem_bytes
-// counts them by element size); the rows paths convert each sample as it
-// is fetched into registers, so their stage buffers and rings stay float.
-// The bound halves with the element: 4 bytes a voxel moved, 67 MB for
-// 256^3 (20 us at 3.35 TB/s).  The source is compiled once per element
-// type (FS_PART: 0 float, 1 __half, 2 __nv_bfloat16; ops/_build.py:PARTS),
-// each part exporting its two C entries.
+// bfloat16 arrays take the same TPU kernels' shift plans
+// (pallas_stencil.py:_make_kernel_3d and _make_kernel_2d, which keep their
+// slab in the input type and compute in it); here they are read as E,
+// folded in float32 with float32 taps and rounded to E once, at the
+// store.  Their bound halves with the element: 4 bytes a voxel moved, 67
+// MB for 256^3 (20 us at 3.35 TB/s); but the passes are held by work a
+// plane step, not bytes, so a half type must not add work where float32
+// has none.  So no fold converts a sample: the planes path stages a
+// half type's planes through registers, one plane ahead (16-byte loads of
+// 8 samples, load_chunk8), and widens them into two float tiles
+// (widen8), which the axis-2 pass reads as float32's reads its tiles;
+// its instances are held to 64 registers, four blocks an SM
+// (kPlanesMinBlocks).  (Copying half tiles by cp.async and widening each
+// arrived tile in shared memory took 20 % longer on the 17-tap gaussian,
+// PERF.md.)  The rows paths load a unit of 8 samples as 16 bytes, hold
+// its raw bits and convert them in pairs at the put (RowUnit), so their
+// stage buffers and rings stay float.  The morphology planes path reads
+// the two-stage kinds' runs as aligned 8-byte chunks of 4 samples
+// converted in registers (run4).
+// float32's code is as it was: every half change is under
+// `if constexpr (sizeof(E) != 4)` or in code only the half types reach.
+// The source is compiled once per element type (FS_PART: 0 float, 1
+// __half, 2 __nv_bfloat16; ops/_build.py:PARTS), each part exporting its
+// two C entries.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -243,9 +256,16 @@ __device__ __forceinline__ void fold_fixed(const float* w, int kind, Get get,
   }
 }
 
+// Blocks of the planes path an SM must hold, by element type: none asked
+// of float32 (its instances come to 40-80 registers), four of a half type
+// (at most 64 registers: left free, its window-5 instances took 80, three
+// blocks an SM, and its ring instance spilled at 40).
+template <class E> constexpr int kPlanesMinBlocks = 4;
+template <> constexpr int kPlanesMinBlocks<float> = 0;
+
 // The planes path (see the top of the file).
 template <int OP, int KZ, class E>
-__global__ void __launch_bounds__(kBX * kBY)
+__global__ void __launch_bounds__(kBX * kBY, kPlanesMinBlocks<E>)
 fused_separable_f32_kernel(const E* __restrict__ x, E* __restrict__ y,
                            const __grid_constant__ Params p) {
   constexpr int V = 16 / sizeof(E);  // samples of a 16-byte chunk
@@ -272,10 +292,15 @@ fused_separable_f32_kernel(const E* __restrict__ x, E* __restrict__ y,
   // boundary on
   int* row_map = reinterpret_cast<int*>(w0 + 3 * kMaxTaps);  // H1
   int* col_map = row_map + H1;                                 // H2
+  // float32: kStages tiles; a half type: two float tiles (s_st), filled
+  // from registers
   E* s_in = reinterpret_cast<E*>(w0 + 3 * kMaxTaps +
-                                 (H1 + H2 + 3) / 4 * 4);  // kStages tiles
+                                 (H1 + H2 + 3) / 4 * 4);
+  float* s_st = reinterpret_cast<float*>(s_in);
   // H1 x kT2 after axis 2
-  float* s_mid = reinterpret_cast<float*>(s_in + kStages * H1 * H2P);
+  float* s_mid = sizeof(E) == 4
+                     ? reinterpret_cast<float*>(s_in + kStages * H1 * H2P)
+                     : s_st + 2 * H1 * H2P;
   float* ring = s_mid + H1 * kT2;            // K0 planes of T1 x kT2
 
   const int tiles2 = (n2 + kT2 - 1) / kT2;
@@ -306,27 +331,84 @@ fused_separable_f32_kernel(const E* __restrict__ x, E* __restrict__ y,
     __pipeline_commit();
   };
 
+  // A half type's planes instead, staged through registers one plane
+  // ahead: a thread loads its first kPre chunks of plane e + 1 (t, t +
+  // 256; 16 bytes each) before the passes of plane e and widens them into
+  // float tile (e + 1) % 2 after them; any further chunk is loaded at the
+  // put.  One chunk where the axis-0 window takes registers (the 5-tap
+  // filters' 200 chunks a plane), two for the rings (the 17-tap
+  // gaussian's 352).
+  constexpr int kPre = KZ > 0 ? 1 : 2;
+  const unsigned cvbits = sizeof(E) == 4 ? 0u : bits_of(from_f<E>(cval));
+  uint4 pre[kPre];
+  auto plane_of = [&](int e, bool& oob0) {
+    oob0 = false;
+    return x + (size_t)map_index(z0 - lo0 + e, n0, mode0, oob0) * n1 * n2;
+  };
+  auto fetch = [&](int e) {
+    bool oob0;
+    const E* plane = plane_of(e, oob0);
+#pragma unroll
+    for (int k = 0; k < kPre; ++k) {
+      const int i = tid + k * kBX * kBY;
+      if (i < H1 * nch) {
+        pre[k] = load_chunk8(plane, oob0, i, nch, n2, row_map, col_map, H2,
+                             xs, p.vec, cvbits);
+      }
+    }
+  };
+  auto put = [&](int e) {
+    float* dst = s_st + (e & 1) * H1 * H2P;
+#pragma unroll
+    for (int k = 0; k < kPre; ++k) {
+      const int i = tid + k * kBX * kBY;
+      if (i < H1 * nch) widen8<E>(pre[k], dst + 8 * i);
+    }
+    if (H1 * nch > kPre * kBX * kBY) {
+      bool oob0;
+      const E* plane = plane_of(e, oob0);
+      for (int i = tid + kPre * kBX * kBY; i < H1 * nch; i += kBX * kBY) {
+        widen8<E>(load_chunk8(plane, oob0, i, nch, n2, row_map, col_map, H2,
+                              xs, p.vec, cvbits), dst + 8 * i);
+      }
+    }
+  };
+
   // kStages - 1 planes ahead of the one being filtered are in flight.
   // The buffer plane e + kStages - 1 goes to was last read by the axis-2
   // pass of plane e - 1, which every thread finished before the barrier
   // that follows that pass.
-  for (int e = 0; e < kStages - 1; ++e) issue(e);
-  // Plane e: wait for its tile, then the axis-2 pass into s_mid.  A thread
-  // computes four outputs per call: columns tx and tx + 32 of rows r and
-  // r + 8.  Where row r + 8 is past the tile (two == false) it recomputes
-  // row r and stores nothing for it.
+  if constexpr (sizeof(E) == 4) {
+    for (int e = 0; e < kStages - 1; ++e) issue(e);
+  } else {
+    fetch(0);
+  }
+  // Plane e: wait for its tile, then the axis-2 pass into s_mid (a half
+  // type: widen its registers into float tile e % 2, last read by the
+  // axis-2 pass of plane e - 2, then load plane e + 1's, in flight during
+  // the passes).  A thread computes four outputs per call: columns tx and
+  // tx + 32 of rows r and r + 8.  Where row r + 8 is past the tile (two ==
+  // false) it recomputes row r and stores nothing for it.
   auto front = [&](int e) {
-    issue(e + kStages - 1);
-    __pipeline_wait_prior(kStages - 1);
-    __syncthreads();
-    const E* tile = s_in + (e % kStages) * H1 * H2P + sh;
+    const float* tile;
+    if constexpr (sizeof(E) == 4) {
+      issue(e + kStages - 1);
+      __pipeline_wait_prior(kStages - 1);
+      __syncthreads();
+      tile = s_in + (e % kStages) * H1 * H2P + sh;
+    } else {
+      put(e);
+      if (e + 1 < nplanes) fetch(e + 1);
+      __syncthreads();
+      tile = s_st + (e & 1) * H1 * H2P + sh;
+    }
     for (int r = ty; r < H1; r += 2 * kBY) {
       const bool two = r + kBY < H1;
       const int dr = two ? kBY : 0;
-      const E* src = tile + r * H2P + tx;
+      const float* src = tile + r * H2P + tx;
       float v[4];
       fold<OP, 4>(w2, K2, kind2, [&](int k, int j) {
-        return to_f(src[(j >> 1) * dr * H2P + (j & 1) * kBX + k]);
+        return src[(j >> 1) * dr * H2P + (j & 1) * kBX + k];
       }, v);
       float* dst = s_mid + r * kT2 + tx;
       dst[0] = v[0];
@@ -540,50 +622,95 @@ __device__ __forceinline__ void vfold8(const float* w, int n,
   f.finish(w, out);
 }
 
-// A sample of a half type from its 16 bits, as a float: exact.
-template <class E>
-__device__ __forceinline__ float from_bits(unsigned b) {
-  if constexpr (std::is_same<E, __half>::value) {
-    return __half2float(__ushort_as_half((unsigned short)b));
-  } else {
-    return __uint_as_float(b << 16);
-  }
-}
-
-// Four samples of a row from column c on, as floats: one 16-byte load (8
-// bytes for the half types) where rows may be read in chunks and the four
-// lie inside the row, else each through the mode's index map (cval
-// outside a constant-mode axis).  The rows paths' loads.
-template <class E>
-__device__ __forceinline__ float4 fetch4(const E* __restrict__ row, int c,
+// Four samples of a float32 row from column c on: one 16-byte load where
+// rows may be read in chunks and the four lie inside the row, else each
+// through the mode's index map (cval outside a constant-mode axis).
+__device__ __forceinline__ float4 fetch4(const float* __restrict__ row, int c,
                                          int n2, int vec, int mode2,
                                          float cval) {
   if (vec && c >= 0 && c + 4 <= n2) {
-    if constexpr (sizeof(E) == 4) {
-      return __ldg(reinterpret_cast<const float4*>(row + c));
-    } else {
-      // sample 0 in the low half of the first word
-      const uint2 w = __ldg(reinterpret_cast<const uint2*>(row + c));
-      return make_float4(from_bits<E>(w.x & 0xffffu), from_bits<E>(w.x >> 16),
-                         from_bits<E>(w.y & 0xffffu), from_bits<E>(w.y >> 16));
-    }
+    return __ldg(reinterpret_cast<const float4*>(row + c));
   }
   float e4[4];
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
     bool o = false;
     const int m2 = map_index(c + e, n2, mode2, o);
-    e4[e] = o ? cval : to_f(__ldg(row + m2));
+    e4[e] = o ? cval : __ldg(row + m2);
   }
   return make_float4(e4[0], e4[1], e4[2], e4[3]);
 }
 
+// The rows paths' unit of input of a half type: 8 consecutive samples of
+// a row from column c on (c a multiple of 4), held in registers from the
+// fetch to the put, which stores sample e at dst[e * nu] as float: its 16
+// raw bytes, one 16-byte load where c is a multiple of 8 (two 8-byte loads
+// where it is 4 modulo 8), converted in pairs at the put (4 registers a
+// unit, not float32's 8).  float32 fetches two float4 (fetch4).
+template <class E>
+struct RowUnit {
+  uint4 b;  // sample 2k in the low half of word k
+
+  // the unit of `row` from column c on, or cval (oob: the row is outside
+  // a constant-mode axis)
+  __device__ __forceinline__ void fetch(const E* __restrict__ row, bool oob,
+                                        int c, int n2, int vec, int mode2,
+                                        float cval) {
+    if (oob) {
+      const unsigned h = bits_of(from_f<E>(cval));
+      const unsigned w = h | h << 16;
+      b = make_uint4(w, w, w, w);
+      return;
+    }
+    if (vec && c >= 0 && c + 8 <= n2) {
+      if ((c & 7) == 0) {
+        b = __ldg(reinterpret_cast<const uint4*>(row + c));
+      } else {
+        const uint2 lo = __ldg(reinterpret_cast<const uint2*>(row + c));
+        const uint2 hi = __ldg(reinterpret_cast<const uint2*>(row + c + 4));
+        b = make_uint4(lo.x, lo.y, hi.x, hi.y);
+      }
+      return;
+    }
+    const unsigned cv = bits_of(from_f<E>(cval));
+    const unsigned short* r = reinterpret_cast<const unsigned short*>(row);
+    unsigned w[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      unsigned h[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        bool o = false;
+        const int m2 = map_index(c + 2 * k + e, n2, mode2, o);
+        h[e] = o ? cv : __ldg(r + m2);
+      }
+      w[k] = h[0] | h[1] << 16;
+    }
+    b = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+
+  __device__ __forceinline__ void put(float* dst, int nu) const {
+    const float2 a0 = unpack2<E>(b.x), a1 = unpack2<E>(b.y),
+                 a2 = unpack2<E>(b.z), a3 = unpack2<E>(b.w);
+    dst[0] = a0.x;
+    dst[nu] = a0.y;
+    dst[2 * nu] = a1.x;
+    dst[3 * nu] = a1.y;
+    dst[4 * nu] = a2.x;
+    dst[5 * nu] = a2.y;
+    dst[6 * nu] = a3.x;
+    dst[7 * nu] = a3.y;
+  }
+};
+
 // Block (bx, by) of a 2-D (n1, n2) array: columns [x0, x0 + 128), rows
 // [r0, r0 + t1).  Shared memory: the taps of both axes, one stage buffer
 // of 16 input rows, each deinterleaved by 8 (column 8u + e of the row,
-// counted from floor4(x0 - lo2), at word e * nu + u; nu is 2 modulo 4,
-// so the two rows a warp reads fall on disjoint banks), and a ring of
-// `ring_rows` horizontally filtered rows of 128.
+// counted from xa, x0 - lo2 rounded down to a multiple of V, at word
+// e * nu + u; nu is 2 modulo 4, so the two rows a warp reads fall on
+// disjoint banks), and a ring of `ring_rows` horizontally filtered rows
+// of 128.  V is 4 for float32 and 8 for a half type, whose units then
+// start on 16 bytes.
 template <int OP, class E>
 __global__ void __launch_bounds__(kRowThreads, kRowBlocksPerSM)
 rows_f32_kernel(const E* __restrict__ x, E* __restrict__ y,
@@ -596,8 +723,9 @@ rows_f32_kernel(const E* __restrict__ x, E* __restrict__ y,
   const bool equal1 = p.ax[1].kind == kEqual, equal2 = p.ax[2].kind == kEqual;
   const float cval = p.cval;
   const int vec = p.vec;
-  // units of a stage row: samples up to 3 + 127 + K2 - 1, 2 modulo 4
-  const int nu = (((K2 + 130 + 7) >> 3) + 1) / 4 * 4 + 2;
+  constexpr int V = 16 / sizeof(E);  // samples of a 16-byte chunk
+  // units of a stage row: samples up to V - 1 + 127 + K2 - 1, 2 modulo 4
+  const int nu = (((K2 + 126 + V + 7) >> 3) + 1) / 4 * 4 + 2;
   const int lag = (K1 - 1 + kRowStep - 1) / kRowStep;  // steps, input to output
   const int ring_rows = kRowStep * (lag + 1);
   float* w1 = rsmem;
@@ -610,13 +738,14 @@ rows_f32_kernel(const E* __restrict__ x, E* __restrict__ y,
   const int r0 = (blockIdx.x / tiles2) * p.t1;
   const int nrows = min(p.t1, n1 - r0);  // output rows of this block
   const int steps = (nrows + kRowStep - 1) / kRowStep + lag;
-  const int xs = x0 - lo2, xa = floor4(xs), sh = xs - xa;
+  const int xs = x0 - lo2, xa = floor_to<V>(xs), sh = xs - xa;
   if (tid < 2 * kMaxTaps) {
     rsmem[tid] = p.ax[1 + tid / kMaxTaps].taps[tid % kMaxTaps];
   }
 
   // unit i of a step: input row i / nu, columns 8 (i % nu) .. + 7
-  float4 pre[kRowPer][2];
+  float4 pre[kRowPer][2];  // float32
+  RowUnit<E> hpre[kRowPer];  // a half type
   auto fetch = [&](int t) {
 #pragma unroll
     for (int u = 0; u < kRowPer; ++u) {
@@ -625,12 +754,17 @@ rows_f32_kernel(const E* __restrict__ x, E* __restrict__ y,
       const int rr = i / nu, ch = i - rr * nu;
       bool oob = false;
       const int m1 = map_index(r0 - lo1 + kRowStep * t + rr, n1, mode1, oob);
+      if constexpr (sizeof(E) == 4) {
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int c = xa + 8 * ch + 4 * half;
-        pre[u][half] = oob ? make_float4(cval, cval, cval, cval)
-                           : fetch4(x + (size_t)m1 * n2, c, n2, vec, mode2,
-                                    cval);
+        for (int half = 0; half < 2; ++half) {
+          const int c = xa + 8 * ch + 4 * half;
+          pre[u][half] = oob ? make_float4(cval, cval, cval, cval)
+                          : fetch4(x + (size_t)m1 * n2, c, n2, vec, mode2,
+                                   cval);
+        }
+      } else {
+        hpre[u].fetch(x + (size_t)m1 * n2, oob, xa + 8 * ch, n2, vec, mode2,
+                      cval);
       }
     }
   };
@@ -641,14 +775,18 @@ rows_f32_kernel(const E* __restrict__ x, E* __restrict__ y,
       if (i >= kRowStep * nu) break;
       const int rr = i / nu, ch = i - rr * nu;
       float* dst = stage + rr * 8 * nu + ch;
-      dst[0] = pre[u][0].x;
-      dst[nu] = pre[u][0].y;
-      dst[2 * nu] = pre[u][0].z;
-      dst[3 * nu] = pre[u][0].w;
-      dst[4 * nu] = pre[u][1].x;
-      dst[5 * nu] = pre[u][1].y;
-      dst[6 * nu] = pre[u][1].z;
-      dst[7 * nu] = pre[u][1].w;
+      if constexpr (sizeof(E) == 4) {
+        dst[0] = pre[u][0].x;
+        dst[nu] = pre[u][0].y;
+        dst[2 * nu] = pre[u][0].z;
+        dst[3 * nu] = pre[u][0].w;
+        dst[4 * nu] = pre[u][1].x;
+        dst[5 * nu] = pre[u][1].y;
+        dst[6 * nu] = pre[u][1].z;
+        dst[7 * nu] = pre[u][1].w;
+      } else {
+        hpre[u].put(dst, nu);
+      }
     }
   };
 
@@ -752,11 +890,12 @@ int launch(const E* x, E* y, const Params& p, const int* plan,
 //   each stage in registers, the plane loop unrolled by it, with no
 //   shared ring; any other window keeps a ring of K0 planes in shared
 //   memory, each thread reading only its own cells;
-// - the runs along a row read their samples as aligned float4 chunks
-//   (run4) where the tile starts on a 16-byte boundary: the planner
-//   shifts the tiles (the rows path's strips always, the planes path's
-//   where that adds no tile), since scalar loads by lanes four columns
-//   apart conflict 4 ways in the banks.  A run may read samples past its
+// - the runs along a row read their samples as aligned chunks of 4
+//   (run4: float4, or 8 bytes of a half type converted in registers)
+//   where the tile starts on a 16-byte boundary: the planner shifts the
+//   tiles (the rows path's strips always, the planes path's where that
+//   adds no tile), since scalar loads by lanes four columns apart
+//   conflict 4 ways in the banks.  A run may read samples past its
 //   row's end (the next row or buffer, inside the block's shared
 //   memory): they feed only outputs it discards.
 //
@@ -900,27 +1039,48 @@ __device__ __forceinline__ void hfold_stage(const float* rb, int nu, int K,
   }, v);
 }
 
+// Four samples from s, 4 c on, as floats: one 16-byte load of float32, or
+// one 8-byte load of a half type converted in pairs (s aligned to it).
+__device__ __forceinline__ float4 chunk4(const float* s, int c) {
+  return reinterpret_cast<const float4*>(s)[c];
+}
+
+template <class E>
+__device__ __forceinline__ float4 chunk4(const E* s, int c) {
+  const uint2 b = reinterpret_cast<const uint2*>(s)[c];
+  const float2 lo = unpack2<E>(b.x), hi = unpack2<E>(b.y);
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
 // A run of 4 outputs of the Op-fold of windows of K samples along a row,
-// sample m of the run at s[m]: where s is 16-byte aligned and K is 3, 5,
-// 7 or 9, the samples as aligned float4 chunks into registers (a warp's
-// lanes, four columns apart, read them without bank conflicts, where
-// scalar loads four words apart conflict 4 ways) and the fold unrolled;
-// otherwise by run_fold from shared memory (the half types' tiles always
-// so, each sample converted as it is read).
+// sample m of the run at s[m]: where s is aligned to 4 samples and K is 3,
+// 5, 7 or 9, the samples as aligned chunks of 4 into registers (chunk4: a
+// warp's lanes, four columns apart, read them without bank conflicts,
+// where scalar loads four words apart conflict 4 ways; a half type's
+// samples converted there, once each) and the fold unrolled; otherwise by
+// run_fold from shared memory, each sample converted as it is read.
 template <class Op, class E>
 __device__ __forceinline__ void run4(int K, const E* s, bool aligned,
                                      typename Op::T (&v)[4]) {
   if constexpr (sizeof(E) != 4) {
-    run_fold<Op, 4>(K, [&](int m) { return Op::from(to_f(s[m])); }, v);
-    return;
-  } else {
+    // A half type's runs on tiles the planner could not shift, and every
+    // run of the pair kinds: the scalar route alone, with no chunk route
+    // compiled beside it.  The pair's registers are at its budget (80 of
+    // 85, three blocks an SM): the chunk route beside the scalar one cost
+    // the 3-D gradient 5 % of its time and its window-5 instance 16 bytes
+    // more spill.
+    if (!aligned || std::is_same<typename Op::T, float2>::value) {
+      run_fold<Op, 4>(K, [&](int m) { return Op::from(to_f(s[m])); }, v);
+      return;
+    }
+  }
   auto fixed = [&](auto kc) {
     constexpr int Kc = decltype(kc)::value;
     constexpr int NC = (Kc + 6) / 4;  // chunks of the K + 3 samples
     float w[4 * NC];
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
-      const float4 f = reinterpret_cast<const float4*>(s)[c];
+      const float4 f = chunk4(s, c);
       w[4 * c] = f.x;
       w[4 * c + 1] = f.y;
       w[4 * c + 2] = f.z;
@@ -934,8 +1094,7 @@ __device__ __forceinline__ void run4(int K, const E* s, bool aligned,
     case 7: fixed(std::integral_constant<int, 7>{}); break;
     case 9: fixed(std::integral_constant<int, 9>{}); break;
     default:
-      run_fold<Op, 4>(K, [&](int m) { return Op::from(s[m]); }, v);
-  }
+      run_fold<Op, 4>(K, [&](int m) { return Op::from(to_f(s[m])); }, v);
   }
 }
 
@@ -1010,9 +1169,11 @@ morph_rows_f32_kernel(const E* __restrict__ x, E* __restrict__ y,
   const int lag = (K1 - 1 + kRowStep - 1) / kRowStep;  // steps, a stage
   const int tid = threadIdx.x;
   // strips of ow columns (a multiple of 4) from column -a on, a = -lead2
-  // modulo 4 (the planner's shift), so that every block's input strip
-  // starts on a 16-byte boundary: the horizontal passes' sample offsets
-  // are constants
+  // modulo 4 (the planner's shift; modulo 8 for a half type), so that
+  // every block's input strip starts on a multiple of 4 samples: the
+  // horizontal passes' sample offsets are constants, and the strip's
+  // units start on 16 bytes (a half type's, where ow is a multiple of 8;
+  // else every other strip's on 8: RowUnit)
   const int a = p.shift;
   const int tiles2 = (n2 + a + ow - 1) / ow;
   const int x0 = (blockIdx.x % tiles2) * ow - a;
@@ -1034,7 +1195,8 @@ morph_rows_f32_kernel(const E* __restrict__ x, E* __restrict__ y,
   };
 
   // unit i of a step: input row i / nu, columns 8 (i % nu) .. + 7
-  float4 pre[kRowPer][2];
+  float4 pre[kRowPer][2];  // float32
+  RowUnit<E> hpre[kRowPer];  // a half type
   auto fetch = [&](int t) {
 #pragma unroll
     for (int u = 0; u < kRowPer; ++u) {
@@ -1043,12 +1205,17 @@ morph_rows_f32_kernel(const E* __restrict__ x, E* __restrict__ y,
       const int rr = i / nu, ch = i - rr * nu;
       bool oob = false;
       const int m1 = map_index(r0 - lead1 + kRowStep * t + rr, n1, mode1, oob);
+      if constexpr (sizeof(E) == 4) {
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int col = xa + 8 * ch + 4 * h;
-        pre[u][h] = oob ? make_float4(cval, cval, cval, cval)
-                        : fetch4(x + (size_t)m1 * n2, col, n2, vec, mode2,
-                                 cval);
+        for (int h = 0; h < 2; ++h) {
+          const int col = xa + 8 * ch + 4 * h;
+          pre[u][h] = oob ? make_float4(cval, cval, cval, cval)
+                          : fetch4(x + (size_t)m1 * n2, col, n2, vec, mode2,
+                                   cval);
+        }
+      } else {
+        hpre[u].fetch(x + (size_t)m1 * n2, oob, xa + 8 * ch, n2, vec, mode2,
+                      cval);
       }
     }
   };
@@ -1059,14 +1226,18 @@ morph_rows_f32_kernel(const E* __restrict__ x, E* __restrict__ y,
       if (i >= kRowStep * nu) break;
       const int rr = i / nu, ch = i - rr * nu;
       float* dst = stage + rr * 8 * nu + ch;
-      dst[0] = pre[u][0].x;
-      dst[nu] = pre[u][0].y;
-      dst[2 * nu] = pre[u][0].z;
-      dst[3 * nu] = pre[u][0].w;
-      dst[4 * nu] = pre[u][1].x;
-      dst[5 * nu] = pre[u][1].y;
-      dst[6 * nu] = pre[u][1].z;
-      dst[7 * nu] = pre[u][1].w;
+      if constexpr (sizeof(E) == 4) {
+        dst[0] = pre[u][0].x;
+        dst[nu] = pre[u][0].y;
+        dst[2 * nu] = pre[u][0].z;
+        dst[3 * nu] = pre[u][0].w;
+        dst[4 * nu] = pre[u][1].x;
+        dst[5 * nu] = pre[u][1].y;
+        dst[6 * nu] = pre[u][1].z;
+        dst[7 * nu] = pre[u][1].w;
+      } else {
+        hpre[u].put(dst, nu);
+      }
     }
   };
   if constexpr (kTwo) {
@@ -1239,8 +1410,9 @@ morph_planes_f32_kernel(const E* __restrict__ x, E* __restrict__ y,
   float* ring2 = reinterpret_cast<float*>(ring1 + K0 * W1 * W2);  // K0 x T1 x kT2
 
   // tiles of kT2 columns from column -a on; where the planner can (a =
-  // -lead2 modulo 4 adds no tile), every input tile starts on a 16-byte
-  // boundary and a run's samples are whole float4 chunks (run4)
+  // -lead2 modulo 4, or 8 for a half type, adds no tile), every input
+  // tile starts on a 16-byte boundary and a run's samples are whole
+  // chunks of 4 (run4)
   const int a = p.shift;
   const int tiles2 = (n2 + a + kT2 - 1) / kT2;
   const int o1 = (blockIdx.x / tiles2) * T1;
@@ -1249,8 +1421,10 @@ morph_planes_f32_kernel(const E* __restrict__ x, E* __restrict__ y,
   const int z1 = min(z0 + p.z, n0);
   const int nplanes = z1 - z0 + (kTwo ? 2 : 1) * (K0 - 1);
   const int xs = o2 - lead2;
-  // 0 where the planner shifted the tiles (float: chunks of 4 samples)
+  // 0 where the planner shifted the tiles: runs of aligned chunks of 4
+  // samples, as are a half type's where sh is 4 (its chunks are 8 bytes)
   const int sh = xs - floor_to<V>(xs);
+  const bool aligned_runs = sizeof(E) == 4 ? sh == 0 : (sh & 3) == 0;
   const int tid = threadIdx.y * kBX + threadIdx.x;
   build_maps(row_map, H1, o1 - lead1, n1, p.mode[1], H2, xs, n2, p.mode[2]);
   __syncthreads();
@@ -1281,7 +1455,7 @@ morph_planes_f32_kernel(const E* __restrict__ x, E* __restrict__ y,
     int r = tid / runs2, q = tid - r * runs2;
     for (int i = tid; i < H1 * runs2; i += kThreads) {
       T v[L];
-      run4<Op1>(K2, tile + r * H2P + sh + L * q, sh == 0, v);
+      run4<Op1>(K2, tile + r * H2P + sh + L * q, aligned_runs, v);
       store4(s_a + r * W2P + L * q, v);
       q += dq;
       r += dr;

@@ -3,14 +3,19 @@
 // of csrc/ (blocks of 32 x 8 threads): the interior of a row in 16-byte
 // cp.async chunks, only the samples at an edge through the index maps
 // (boundary.cuh).  The tile keeps the array's element type: float, or
-// __half / __nv_bfloat16 (8 samples a chunk), which the kernels convert
-// to float as they read it (to_f).
+// __half / __nv_bfloat16 (8 samples a chunk, an edge sample as a load and
+// a store).  The separable planes path stages a half type's planes
+// through registers instead (load_chunk8, widen8): its passes read float
+// tiles, since a conversion on every read costs one instruction a tap on
+// a pass that reads each sample K times.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_pipeline.h>
 #include <stddef.h>
+
+#include <type_traits>
 
 #include "boundary.cuh"
 
@@ -32,6 +37,24 @@ template <> __device__ __forceinline__ __half from_f<__half>(float v) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
+}
+
+// two samples of a half type from one 32-bit word (sample 0 in the low
+// half), as floats: exact
+template <class E>
+__device__ __forceinline__ float2 unpack2(unsigned w) {
+  if constexpr (std::is_same<E, __half>::value) {
+    return __half22float2(*reinterpret_cast<const __half2*>(&w));
+  } else {
+    return make_float2(__uint_as_float(w << 16),
+                       __uint_as_float(w & 0xffff0000u));
+  }
+}
+
+// the 16 bits of a sample of a half type
+template <class E>
+__device__ __forceinline__ unsigned short bits_of(E v) {
+  return *reinterpret_cast<const unsigned short*>(&v);
 }
 
 constexpr int kLoadBX = 32;        // threads along a row of the block
@@ -119,6 +142,55 @@ __device__ __forceinline__ void load_plane16(
       }
     }
   }
+}
+
+// The 8 samples of a half type's chunk i of a halo'd tile row (row i /
+// nch, samples from column xa + 8 (i % nch) on, xa = floor_to<8>(xs)) of
+// the plane at `plane` (oob0: outside a constant-mode axis 0), as raw bits
+// (sample 2k in the low half of word k): one 16-byte load inside the row
+// where rows may be read so, else each sample through the maps (cval, or
+// 0 for a sample no pass reads), as load_plane16 maps them.  The half
+// types' planes path stages its planes through registers with it.
+template <class E>
+__device__ __forceinline__ uint4 load_chunk8(
+    const E* __restrict__ plane, bool oob0, int i, int nch, int n2,
+    const int* row_map, const int* col_map, int h2, int xs, int vec,
+    unsigned cvbits) {
+  const int r = i / nch, ch = i - r * nch;
+  const int m1 = oob0 ? -1 : row_map[r];
+  if (m1 < 0) {
+    const unsigned w = cvbits | cvbits << 16;
+    return make_uint4(w, w, w, w);
+  }
+  const E* row = plane + (size_t)m1 * n2;
+  const int c = floor_to<8>(xs) + 8 * ch;
+  if (vec && c >= 0 && c + 8 <= n2) {
+    return __ldg(reinterpret_cast<const uint4*>(row + c));
+  }
+  const unsigned short* rs = reinterpret_cast<const unsigned short*>(row);
+  unsigned w[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    unsigned h[2];
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int t = c + 2 * k + q - xs;
+      const int m2 = t >= 0 && t < h2 ? col_map[t] : -2;
+      h[q] = m2 >= 0 ? (unsigned)__ldg(rs + m2) : m2 == -1 ? cvbits : 0u;
+    }
+    w[k] = h[0] | h[1] << 16;
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// A chunk's 8 raw half samples, widened to float at dst (16-byte aligned)
+// as two float4 stores.
+template <class E>
+__device__ __forceinline__ void widen8(uint4 b, float* dst) {
+  const float2 a0 = unpack2<E>(b.x), a1 = unpack2<E>(b.y),
+               a2 = unpack2<E>(b.z), a3 = unpack2<E>(b.w);
+  reinterpret_cast<float4*>(dst)[0] = make_float4(a0.x, a0.y, a1.x, a1.y);
+  reinterpret_cast<float4*>(dst)[1] = make_float4(a2.x, a2.y, a3.x, a3.y);
 }
 
 }  // namespace

@@ -147,10 +147,11 @@ class Plan:
     axis-0 window in registers, 0 for a shared ring) are the morphology
     planes path's; the morphology modes' tiles and strips start ``shift``
     columns left of column 0 (minus the input's lead along axis 2, modulo
-    4; the planes path only where that adds no tile), so that each input
-    tile starts on a 16-byte boundary.  ``itemsize`` is the element's
-    bytes (4, or 2 for the half types), which the planes paths' input
-    tiles hold.
+    the samples of 16 bytes: 4, or 8 for a half type; the planes path only
+    where that adds no tile), so that each input tile starts on a 16-byte
+    boundary.  ``itemsize`` is the element's bytes (4, or 2 for the half
+    types), which the planes paths' input tiles and the rows path's stage
+    rows depend on.
     """
 
     shape: tuple
@@ -191,11 +192,13 @@ def _row_chunks(h2, itemsize=4):
     return (h2 + 2 * (v - 1)) // v
 
 
-def _row_units(k2):
+def _row_units(k2, itemsize=4):
     """8-sample units of a rows-path stage row (``nu`` in the kernel):
-    3 + ROW_W + k2 - 1 samples from any alignment, rounded up to 2 modulo
-    4 so that the two rows a warp reads fall on disjoint banks."""
-    need = (ROW_W + k2 + 2 + 7) // 8
+    v - 1 + ROW_W + k2 - 1 samples from a start rounded down to a multiple
+    of v, the samples of a 16-byte chunk (4 for float32, 8 for a half
+    type), rounded up to 2 modulo 4 so that the two rows a warp reads fall
+    on disjoint banks."""
+    need = (ROW_W + k2 + 16 // itemsize - 2 + 7) // 8
     return (need + 1) // 4 * 4 + 2
 
 
@@ -221,12 +224,13 @@ def smem_bytes(ntaps, t1, t2=T2, mode="separable", stages=STAGES,
     read them).
 
     ``mode="separable"`` (the planes path): the taps, the row and column
-    index maps, STAGES halo'd input tiles (rows of 16-byte chunks), the
-    tile after the axis-2 pass and the ring of K0 filtered planes (none
-    for K0 in REGISTER_WINDOWS).  ``"rows"`` (a 2-D array): the taps of
-    two axes, one stage buffer of ROW_STEP input rows and the ring of
-    :func:`row_ring` filtered rows of ``t2``; ``t1``, the block's rows,
-    costs nothing.
+    index maps, STAGES halo'd input tiles (rows of 16-byte chunks; a half
+    type: two such tiles widened to float32, which it fills from
+    registers), the tile after the axis-2 pass and the ring of K0
+    filtered planes (none for K0 in REGISTER_WINDOWS).  ``"rows"`` (a 2-D
+    array): the taps of two axes, one stage buffer of ROW_STEP input rows
+    (:func:`_row_units` by ``itemsize``) and the ring of :func:`row_ring`
+    filtered rows of ``t2``; ``t1``, the block's rows, costs nothing.
 
     The morphology modes' planes paths: ``"open_close"``: the index maps,
     ``stages`` input tiles halo'd by both stages' windows (rows of
@@ -266,13 +270,16 @@ def smem_bytes(ntaps, t1, t2=T2, mode="separable", stages=STAGES,
                     + (w1 + MORPH_L) * t2 + ring)
     h1, h2 = t1 + k1 - 1, t2 + k2 - 1
     if mode == "rows":
-        return 4 * (2 * MAX_TAPS + ROW_STEP * 8 * _row_units(k2)
+        return 4 * (2 * MAX_TAPS + ROW_STEP * 8 * _row_units(k2, itemsize)
                     + row_ring(k1) * t2)
     if mode != "separable":
         raise ValueError(f"unknown kernel mode {mode!r}")
     maps = (h1 + h2 + 3) // 4 * 4
     ring = 0 if k0 in REGISTER_WINDOWS else k0 * t1 * t2
-    tiles = STAGES * h1 * 4 * _row_chunks(h2, itemsize)  # words
+    # words: STAGES tiles of 16-byte chunks, or a half type's two tiles
+    # widened to float32 (8 words a chunk of 8 samples)
+    chunks = h1 * _row_chunks(h2, itemsize)
+    tiles = STAGES * chunks * 4 if itemsize == 4 else 2 * chunks * 8
     return 4 * (3 * MAX_TAPS + maps + tiles + h1 * t2 + ring)
 
 
@@ -366,8 +373,9 @@ def plan(shape, ntaps, mode="separable", shift=0, itemsize=4):
         return Plan(
             shape=(n0, n1, n2), ntaps=ntaps, t1=rows, t2=ROW_W, z=1,
             grid=(strips * math.ceil(n1 / rows), 1),
-            smem_bytes=smem_bytes(ntaps, rows, ROW_W, "rows"), mode="rows",
-            itemsize=itemsize,
+            smem_bytes=smem_bytes(ntaps, rows, ROW_W, "rows",
+                                  itemsize=itemsize),
+            mode="rows", itemsize=itemsize,
         )
     t2 = T2
     t1 = 8 if n1 <= 8 else 16
@@ -741,10 +749,13 @@ def _morph_args(x, sizes, origins1, origins2, modes, kind):
     info = _morph_info(x, sizes, origins1, origins2, modes)
     shape3 = (1,) * (3 - x.ndim) + tuple(x.shape)
     two = kind in ("opening", "closing")
-    # the input's lead along axis 2 (both stages' for the two-stage kernel)
+    # the input's lead along axis 2 (both stages' for the two-stage kernel),
+    # shifted out to a 16-byte boundary: 4 samples of float32, 8 of a half
+    # type (whose rows paths read 8 a load)
     lead2 = int(info[2, 1]) + (int(info[2, 2]) if two else 0)
     dims, geom = _plan_args(x, shape3, info[:, 0],
-                            "open_close" if two else "pair", -lead2 % 4)
+                            "open_close" if two else "pair",
+                            -lead2 % (16 // x.element_size()))
     return dims, info, geom
 
 

@@ -30,6 +30,7 @@
 """
 
 import functools
+import itertools
 
 import numpy as np
 import pytest
@@ -413,12 +414,26 @@ def test_shared_bytes_by_element_size(mode):
         w1, w2 = ((t1 + k1 - 1, fs.T2 + k2 - 1) if mode == "open_close"
                   else (t1, fs.T2))
         h1, h2 = w1 + k1 - 1, w2 + k2 - 1
-        # the input tiles alone: 16-byte chunks of 4 samples, or of 8
+        # the input tiles: 16-byte chunks of 4 samples, or of 8; the
+        # separable planes path holds a half type's planes as two tiles
+        # widened to float32 (8 words a chunk of 8), not four of 16 bytes
         chunks4, chunks8 = (h2 + 6) // 4, (h2 + 14) // 8
         assert fs._row_chunks(h2) == chunks4
         assert fs._row_chunks(h2, 2) == chunks8
-        assert full - half == 4 * h1 * 16 * (chunks4 - chunks8)
-    for rows in ("rows", "open_close_rows", "pair_rows"):
+        if mode == "separable":
+            assert full - half == 4 * h1 * (16 * chunks4 - 2 * 8 * chunks8)
+        else:
+            assert full - half == 4 * h1 * 16 * (chunks4 - chunks8)
+    # the rows path's stage rows start on a multiple of 8 samples for a
+    # half type: up to 7 + 127 + K2 - 1 samples, not 3 + 127 + K2 - 1
+    for k2 in (1, 3, 5, 9, 17, 60, 64):
+        units4, units8 = fs._row_units(k2), fs._row_units(k2, 2)
+        assert 8 * units4 >= 3 + 128 + k2 - 1 and units4 % 4 == 2
+        assert 8 * units8 >= 7 + 128 + k2 - 1 and units8 % 4 == 2
+        assert (fs.smem_bytes((1, 9, k2), 64, 128, "rows", itemsize=2)
+                - fs.smem_bytes((1, 9, k2), 64, 128, "rows")
+                == 4 * 16 * 8 * (units8 - units4))
+    for rows in ("open_close_rows", "pair_rows"):
         assert (fs.smem_bytes((1, 9, 9), 64, 128, rows, itemsize=2)
                 == fs.smem_bytes((1, 9, 9), 64, 128, rows))
 
@@ -437,6 +452,98 @@ def test_half_plans_cover_the_volume(mode):
             for by in range(p.grid[1]):
                 seen[p.block_region(bx, by)] += 1
         assert (seen == 1).all()
+
+
+def _kernel_bytes(ntaps, t1, mode, itemsize):
+    """Shared bytes of a block as csrc/fused_separable.cu lays them out
+    (its pointer arithmetic, transcribed): the planes path
+    (fused_separable_f32_kernel) or the rows path (rows_f32_kernel)."""
+    k0, k1, k2 = ntaps
+    v = 16 // itemsize
+    if mode == "rows":
+        nu = (((k2 + 126 + v + 7) >> 3) + 1) // 4 * 4 + 2
+        lag = (k1 - 1 + 15) // 16
+        return 4 * (2 * 64 + 16 * 8 * nu + 16 * (lag + 1) * 128)
+    h1, h2 = t1 + k1 - 1, 64 + k2 - 1
+    nch = (h2 + 2 * (v - 1)) // v
+    h2p = v * nch
+    words = 3 * 64 + (h1 + h2 + 3) // 4 * 4
+    # bytes: kStages tiles of the type, or a half type's two float tiles
+    s_in = 4 * h1 * h2p * itemsize if itemsize == 4 else 2 * h1 * h2p * 4
+    ring = 0 if k0 in (3, 5) else k0 * t1 * 64
+    return 4 * words + s_in + 4 * (h1 * 64 + ring)
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("mode", ["separable", "rows"])
+def test_shared_bytes_are_the_kernel_layout(mode, itemsize):
+    for k0, k1, k2 in itertools.product((1, 3, 5, 7, 17), (1, 2, 9, 64),
+                                        (1, 3, 8, 17, 64)):
+        for t1 in (16, 8, 1):
+            ntaps = (1 if mode == "rows" else k0, k1, k2)
+            assert (fs.smem_bytes(ntaps, t1, 128 if mode == "rows" else
+                                  fs.T2, mode, itemsize=itemsize)
+                    == _kernel_bytes(ntaps, t1, mode, itemsize))
+
+
+# chip_smoke.py's half path: (shape, taps or windows, mode)
+HALF_PATH_PLANS = [((256,) * 3, (5, 5, 5), "separable"),
+                   ((256,) * 3, (17, 17, 17), "separable"),
+                   ((256,) * 3, (5, 5, 5), "open_close"),
+                   ((256,) * 3, (3, 3, 3), "pair"),
+                   ((1, 4096, 4096), (1, 9, 9), "separable"),
+                   ((1, 4096, 4096), (1, 3, 3), "separable"),
+                   ((1, 4096, 4096), (1, 5, 5), "open_close")]
+
+
+@pytest.mark.parametrize("shape, ntaps, mode", HALF_PATH_PLANS)
+def test_half_plans_at_the_half_path_shapes(shape, ntaps, mode):
+    shift = 0 if mode == "separable" else -sum(
+        k // 2 for k in ntaps[2:] * (2 if mode == "open_close" else 1)) % 8
+    p = fs.plan(shape, ntaps, mode, shift=shift, itemsize=2)
+    assert p.smem_bytes <= fs.SMEM_LIMIT
+    assert p.smem_bytes == fs.smem_bytes(ntaps, p.t1, p.t2, p.mode,
+                                         p.stages, p.window, 2)
+    # the 17-tap gaussian keeps two blocks an SM (228 KB, 1 KB a block
+    # reserved): its ring is most of a block
+    assert 2 * (p.smem_bytes + 1024) <= 228 * 1024 or p.mode != "separable"
+    seen = np.zeros(shape, np.uint8)
+    for bx in range(p.grid[0]):
+        for by in range(p.grid[1]):
+            seen[p.block_region(bx, by)] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float16", "bfloat16"])
+@pytest.mark.parametrize("kind", ["opening", "grad"])
+def test_morph_shift_aligns_the_runs(kind, dtype):
+    tdt = getattr(torch, dtype)
+    v = 16 // torch.empty(0, dtype=tdt).element_size()
+    two = kind == "opening"
+    for shape in ((37, 300), (29, 264), (6, 19, 256), (6, 19, 250)):
+        for size, origin in ((3, 0), (5, 0), (4, 1), (9, -2)):
+            x = torch.zeros(shape, dtype=tdt)
+            nd = len(shape)
+            args = ((size,) * nd, (origin,) * nd, (0,) * nd,
+                    ("reflect",) * nd)
+            _, info, geom = fs._morph_args(
+                x, *(args if two else (args[0], args[1], args[1], args[3])),
+                kind)
+            lead2 = int(info[2, 1]) + (int(info[2, 2]) if two else 0)
+            a, ow = int(geom[10]), int(geom[9])
+            n2 = shape[-1]
+            tiles2 = -(-(n2 + a) // ow)
+            for bx in range(tiles2):
+                xs = bx * ow - a - lead2  # the block's first input column
+                if nd == 2:
+                    # whole units of 4 samples; of 8 (16 bytes of a half
+                    # type) where the strips are a multiple of 8 wide
+                    assert xs % 4 == 0
+                    assert xs % v == 0 or ow % 8 != 0
+                elif a:
+                    # the planes path's shifted tiles: runs of aligned
+                    # chunks of 4 samples (sh 0 for float32, 0 or 4 else)
+                    assert (xs - xs // v * v) % 4 == 0
 
 
 def test_sixteen_byte_flag_counts_samples_of_the_type():

@@ -10,6 +10,10 @@ without a card; this file imports no JAX.
   cannot be read in 16-byte chunks.  min/max/opening/closing/gradient
   exactly, NaN included; corr and laplace within 1 ulp of the half type
   at max|plain| (the two may sum in another order).
+- The same against the plain versions over the branches of the half
+  types' redesigned kernels (``BRANCHES``): rows of 16-byte units and of
+  an odd number of samples, shifted tiles, 1 to 64 taps along the
+  contiguous axis, every axis-0 register window and a ring.
 - Each half call of ``chip_smoke.py``'s half path, at a small size, is
   one B1 (or B1-morph) launch, never the plain version, and agrees with
   scipy in float64 on the same half values: opening, closing and min/max
@@ -118,6 +122,77 @@ def test_kernel_matches_plain_version(cuda, kind, dtype, path, mode,
     exact = kind not in ("corr", "laplace")
     x = _input(shape, dtype, nans=exact)
     got, ref = run_kind(kind, x.cuda(), n, mode, cval)
+    torch.cuda.synchronize()
+    assert got.dtype == ref.dtype == dtype and got.shape == ref.shape
+    got, ref = got.cpu().double().numpy(), ref.double().numpy()
+    if exact:
+        np.testing.assert_array_equal(got, ref)
+    else:
+        np.testing.assert_allclose(
+            got, ref, rtol=0, atol=ulp(dtype, np.abs(ref).max()))
+
+
+# The branches of the half types' redesigned kernels: (shape, per-axis
+# taps or windows, mode, cval).  Rows of n2 % 8 == 0 (16-byte units) and
+# 3 (every sample through the index map), tiles shifted off a 16-byte
+# boundary (sh != 0), K2 of 1, 5, 17 and 64 with an even window among
+# them, axis-0 windows of 1, 3 and 5 (registers) and 7 (a ring), partial
+# edge tiles; 3-D on the planes paths, 2-D on the rows paths.
+BRANCHES = {
+    "ring 7, sh 6, n2 % 8 = 0": ((7, 18, 72), (7, 3, 5), "reflect", 0.0),
+    "window 3, K2 17, n2 % 8 = 3": ((6, 18, 67), (3, 5, 17), "constant",
+                                     0.3),
+    "window 5, K2 64, n2 % 8 = 3": ((8, 21, 131), (5, 2, 64), "nearest",
+                                     0.0),
+    "window 1, K2 1": ((5, 19, 64), (1, 5, 1), "wrap", 0.0),
+    "rows K2 5, sh 6": ((40, 264), (17, 5), "mirror", 0.0),
+    "rows K2 64, n2 % 8 = 3": ((37, 291), (3, 64), "reflect", 0.0),
+    "rows K2 1": ((33, 200), (9, 1), "constant", 0.3),
+}
+
+
+def _branch_taps(n, rng):
+    """Taps of each of the kernel's kinds by length: equal (5), symmetric
+    (3, 17), general (1, 2, 7, 64)."""
+    if n == 5:
+        return (0.2,) * 5
+    if n == 3:
+        return (0.25, 0.5, 0.25)
+    if n == 17:
+        g = np.exp(-0.5 * (np.arange(-8, 9) / 3.0) ** 2)
+        return tuple(g / g.sum())
+    return tuple(rng.uniform(-1, 1, n) / n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(BRANCHES))
+@pytest.mark.parametrize("dtype", sorted(HALF))
+@pytest.mark.parametrize("kind", KINDS)
+def test_redesigned_branches_match_plain_version(cuda, kind, dtype, case):
+    dtype = HALF[dtype]
+    shape, sizes, mode, cval = BRANCHES[case]
+    nd = len(shape)
+    exact = kind not in ("corr", "laplace")
+    x = _input(shape, dtype, nans=exact, seed=5)
+    xc, xd = x, x.cuda()
+    modes, zeros = (mode,) * nd, (0,) * nd
+    if kind == "corr":
+        rng = np.random.RandomState(sum(sizes))
+        args = ([_branch_taps(n, rng) for n in sizes], zeros, modes, cval)
+        got = fs.fused_separable_correlate(xd, *args)
+        ref = fs.fused_separable_correlate_ref(xc, *args)
+    elif kind in ("min", "max"):
+        args = (sizes, zeros, modes, cval, kind == "min")
+        got = fs.fused_separable_minmax(xd, *args)
+        ref = fs.fused_separable_minmax_ref(xc, *args)
+    elif kind in ("opening", "closing"):
+        args = (sizes, zeros, zeros, modes, cval, kind == "opening")
+        got = fs.fused_separable_open_close(xd, *args)
+        ref = fs.fused_separable_open_close_ref(xc, *args)
+    else:
+        args = (sizes, zeros, modes, cval, kind)
+        got = fs.fused_separable_morph_pair(xd, *args)
+        ref = fs.fused_separable_morph_pair_ref(xc, *args)
     torch.cuda.synchronize()
     assert got.dtype == ref.dtype == dtype and got.shape == ref.shape
     got, ref = got.cpu().double().numpy(), ref.double().numpy()
