@@ -1,0 +1,6 @@
+"""The benchmark of cupyimg_tpu_torch on one NVIDIA GPU.
+
+``python3 portbench/run.py --workload <cell> --seed <n> --seconds <s>
+--trace <0|1>`` runs one cell of ``BENCHMARK.json`` once; see
+``README.md``.  Nothing here imports JAX or the JAX package.
+"""
